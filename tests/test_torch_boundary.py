@@ -1,0 +1,89 @@
+"""The port's boundary: ``analyzer_tpu_torch`` and ``chip_smoke.py`` stand
+alone — no ``jax``, nothing of ``analyzer_tpu`` — and entry points never
+drop quietly from the card to the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from analyzer_tpu_torch.core.state import PlayerState
+from analyzer_tpu_torch.device import resolve_device
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_PKG = os.path.join(_REPO, "analyzer_tpu_torch")
+
+
+def _port_files():
+    out = [os.path.join(_REPO, "chip_smoke.py")]
+    for root, _dirs, files in os.walk(_PKG):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top == "jax" or top == "jaxlib" or top == "analyzer_tpu"
+
+
+def test_import_leaves_jax_and_reference_out():
+    """Importing every module of the port loads neither jax nor any
+    analyzer_tpu module (template: tests/test_lint_clean.py)."""
+    probe = (
+        "import importlib, pkgutil, sys\n"
+        "import analyzer_tpu_torch\n"
+        "for m in pkgutil.walk_packages(analyzer_tpu_torch.__path__, "
+        "'analyzer_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'analyzer_tpu'))\n"
+        "assert not leaked, leaked\n"
+        "assert 'analyzer_tpu_torch.sched.runner' in sys.modules\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", probe],
+        capture_output=True, text=True, timeout=120, cwd=_REPO,
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize(
+    "path", _port_files(), ids=lambda p: os.path.relpath(p, _REPO)
+)
+def test_no_jax_or_reference_import_in_source(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            if _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_cuda_request_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: nothing to refuse")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PlayerState.create(4)  # device=None means the card
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_without_card_fails_without_result():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible; chip_smoke.py would run")
+    proc = subprocess.run(
+        [sys.executable, os.path.join(_REPO, "chip_smoke.py")],
+        capture_output=True, text=True, timeout=120, cwd=_REPO,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

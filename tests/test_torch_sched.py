@@ -1,0 +1,206 @@
+"""The port's host-side pipeline against the JAX package, byte for byte:
+synthetic streams, ``pack_schedule`` (eager and windowed) and its
+``fingerprint``, the assigners and batch sizing, and residency plans; the
+native packer against the python loops."""
+
+import numpy as np
+import pytest
+
+import analyzer_tpu.sched as jsched
+from analyzer_tpu.io import synthetic as jsynth
+from analyzer_tpu.sched import residency as jres
+from analyzer_tpu_torch.io import synthetic
+from analyzer_tpu_torch.sched import _native, residency, superstep
+
+STREAM_CASES = [
+    dict(n_matches=300, n_players=60, seed=11),
+    dict(n_matches=2000, n_players=400, seed=5, activity_concentration=0.8,
+         max_activity_share=1e-2),
+    dict(n_matches=500, n_players=90, seed=7, afk_rate=0.3, unsupported_rate=0.2),
+    dict(n_matches=400, n_players=80, seed=2, synergy_strength=0.5),
+]
+
+
+def _streams(case):
+    kw = dict(case)
+    n, p, seed = kw.pop("n_matches"), kw.pop("n_players"), kw.pop("seed")
+    tp = synthetic.synthetic_players(p, seed=seed)
+    jp = jsynth.synthetic_players(p, seed=seed)
+    return (tp, synthetic.synthetic_stream(n, tp, seed=seed, **kw),
+            jp, jsynth.synthetic_stream(n, jp, seed=seed, **kw))
+
+
+@pytest.mark.parametrize("case", STREAM_CASES, ids=lambda c: f"seed{c['seed']}")
+def test_synthetic_byte_equal(case):
+    tp, ts, jp, js = _streams(case)
+    for f in ("latent_skill", "rank_points_ranked", "rank_points_blitz",
+              "skill_tier", "archetype"):
+        a, b = getattr(tp, f), getattr(jp, f)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f
+    for f in ("player_idx", "winner", "mode_id", "afk"):
+        a, b = getattr(ts, f), getattr(js, f)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f
+
+
+SCHED_FIELDS = ("match_idx", "winner", "mode_id", "afk")
+
+
+@pytest.mark.parametrize("case", STREAM_CASES, ids=lambda c: f"seed{c['seed']}")
+@pytest.mark.parametrize("batch_size", [None, 8])
+def test_pack_schedule_byte_equal(case, batch_size):
+    tp, ts, _jp, js = _streams(case)
+    pad = tp.n_players
+    for windowed in (False, True):
+        a = superstep.pack_schedule(ts, pad_row=pad, batch_size=batch_size,
+                                    windowed=windowed)
+        b = jsched.pack_schedule(js, pad_row=pad, batch_size=batch_size,
+                                 windowed=windowed)
+        assert type(a).__name__ == type(b).__name__
+        for f in SCHED_FIELDS:
+            assert getattr(a, f).tobytes() == getattr(b, f).tobytes(), f
+        assert a.fingerprint == b.fingerprint
+        assert (a.n_steps, a.batch_size, a.occupancy) == (b.n_steps, b.batch_size, b.occupancy)
+        if not windowed:
+            assert a.player_idx.tobytes() == b.player_idx.tobytes()
+            assert a.slot_mask.tobytes() == b.slot_mask.tobytes()
+        w0, w1 = 1, min(5, a.n_steps)
+        for x, y in zip(a.host_window(w0, w1), b.host_window(w0, w1)):
+            assert x.tobytes() == y.tobytes()
+
+
+def test_hand_built_schedule_fingerprint_and_invariant():
+    tp, ts, _jp, js = _streams(STREAM_CASES[0])
+    a = superstep.pack_schedule(ts, pad_row=60, batch_size=8)
+    b = jsched.pack_schedule(js, pad_row=60, batch_size=8)
+    ha = superstep.PackedSchedule(a.player_idx, a.slot_mask, a.winner, a.mode_id,
+                                  a.afk, a.match_idx, a.pad_row)
+    hb = jsched.PackedSchedule(b.player_idx, b.slot_mask, b.winner, b.mode_id,
+                               b.afk, b.match_idx, b.pad_row)
+    assert ha.fingerprint == hb.fingerprint != a.fingerprint
+    ha.check_compact_invariant()
+    ha.slot_mask = ha.slot_mask.copy()
+    ha.slot_mask[0, 0, 0, 0] = ~ha.slot_mask[0, 0, 0, 0]
+    with pytest.raises(ValueError, match="compact-feed"):
+        ha.check_compact_invariant()
+
+
+def test_team_size_padding_byte_equal():
+    # a 3-wide stream packed at team size 5
+    _tp, ts, _jp, js = _streams(STREAM_CASES[0])
+    ts3 = superstep.MatchStream(ts.player_idx[:, :, :3], ts.winner, ts.mode_id, ts.afk)
+    js3 = jsched.MatchStream(js.player_idx[:, :, :3], js.winner, js.mode_id, js.afk)
+    a = superstep.pack_schedule(ts3, pad_row=60, batch_size=8)
+    b = jsched.pack_schedule(js3, pad_row=60, batch_size=8)
+    assert a.player_idx.tobytes() == b.player_idx.tobytes()
+    assert a.fingerprint == b.fingerprint
+
+
+@pytest.mark.parametrize("case", STREAM_CASES, ids=lambda c: f"seed{c['seed']}")
+def test_assigners_and_batch_size_equal(case):
+    _tp, ts, _jp, js = _streams(case)
+    np.testing.assert_array_equal(
+        superstep.assign_supersteps(ts), jsched.assign_supersteps(js)
+    )
+    for cap in (1, 8, 64):
+        for x, y in zip(superstep.assign_batches(ts, cap),
+                        jsched.assign_batches(js, cap)):
+            np.testing.assert_array_equal(x, y)
+    assert superstep.choose_batch_size(ts) == jsched.choose_batch_size(js)
+    assert (superstep.choose_batch_size_streamed(ts, prefix=97)
+            == jsched.choose_batch_size_streamed(js, prefix=97))
+
+
+@pytest.mark.parametrize("case", STREAM_CASES, ids=lambda c: f"seed{c['seed']}")
+def test_native_equals_python(case):
+    _tp, ts, _jp, _js = _streams(case)
+    lib = _native.load()
+    assert lib is not None, "g++ is expected on this machine"
+    np.testing.assert_array_equal(
+        _native.assign_supersteps(lib, ts), superstep._assign_supersteps_py(ts)
+    )
+    for cap in (1, 8, 64):
+        for x, y in zip(_native.assign_batches_first_fit(lib, ts, cap),
+                        superstep._assign_batches_first_fit_py(ts, cap)):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_python_fallback_is_counted(monkeypatch):
+    _tp, ts, _jp, _js = _streams(STREAM_CASES[0])
+    want = superstep.pack_schedule(ts, pad_row=60, batch_size=8)
+    before = superstep.python_fallbacks
+    monkeypatch.setattr(_native, "load", lambda: None)
+    got = superstep.pack_schedule(ts, pad_row=60)
+    assert superstep.python_fallbacks == before + 2  # sizing + first-fit
+    assert got.batch_size == superstep.choose_batch_size(ts)
+    got8 = superstep.pack_schedule(ts, pad_row=60, batch_size=8)
+    assert got8.fingerprint == want.fingerprint
+
+
+def test_empty_stream_and_bad_rows():
+    empty = superstep.MatchStream(np.empty((0, 2, 3), np.int32), np.empty(0),
+                                  np.empty(0), np.empty(0, bool))
+    s = superstep.pack_schedule(empty, pad_row=5, batch_size=4)
+    j = jsched.pack_schedule(jsched.MatchStream(empty.player_idx, empty.winner,
+                                                empty.mode_id, empty.afk),
+                             pad_row=5, batch_size=4)
+    assert s.fingerprint == j.fingerprint and s.n_steps == 1
+    _tp, ts, _jp, _js = _streams(STREAM_CASES[0])
+    with pytest.raises(ValueError, match="player row"):
+        superstep.pack_schedule(ts, pad_row=10)
+
+
+@pytest.mark.parametrize("window,max_rows", [(1, 32768), (4, 32768), (16, 32768),
+                                             (4, 128), (16, 128)])
+def test_residency_plans_equal(window, max_rows):
+    _tp, ts, _jp, _js = _streams(STREAM_CASES[1])
+    sch = superstep.pack_schedule(ts, pad_row=400, batch_size=16)
+    pidx, _m, winner, mode_id, afk = sch.host_window(0, min(40, sch.n_steps))
+    valid = (pidx != 400) & ((mode_id >= 0) & ~afk)[:, :, None, None]
+    a = residency.plan_windows(pidx, valid, 400, window, max_rows)
+    b = jres.plan_windows(pidx, valid, 400, window, max_rows)
+    assert len(a) == len(b)
+    if max_rows < 1024:
+        assert any(p.spilled for p in a)
+    s0 = 0
+    for x, y in zip(a, b):
+        for f in ("slot_rows", "slot_idx", "first_use", "last_use"):
+            np.testing.assert_array_equal(getattr(x, f), getattr(y, f), err_msg=f)
+            assert getattr(x, f).dtype == getattr(y, f).dtype
+        assert (x.n_live, x.writebacks_avoided, x.spilled) == (
+            y.n_live, y.writebacks_avoided, y.spilled)
+        residency.check_plan(x, pidx[s0:], 400)
+        s0 += x.n_steps
+
+
+def test_residency_plan_checks():
+    _tp, ts, _jp, _js = _streams(STREAM_CASES[0])
+    sch = superstep.pack_schedule(ts, pad_row=60, batch_size=8)
+    pidx, _m, winner, mode_id, afk = sch.host_window(0, 4)
+    valid = pidx != 60
+    plan = residency.plan_windows(pidx, valid, 60, 4, 32768)[0]
+    residency.check_plan(plan, pidx, 60)
+    bad = residency.ResidencyPlan(**{**plan.__dict__, "slot_rows": plan.slot_rows.copy()})
+    bad.slot_rows[2] = bad.slot_rows[1]
+    with pytest.raises(ValueError, match="aliases"):
+        residency.check_plan(bad, pidx, 60)
+    bad.slot_rows = plan.slot_rows.copy()
+    bad.slot_rows[0] = 3
+    with pytest.raises(ValueError, match="slot 0"):
+        residency.check_plan(bad, pidx, 60)
+    with pytest.raises(ValueError, match="one superstep touches"):
+        residency.plan_windows(pidx, valid, 60, 4, 8)
+    with pytest.raises(ValueError, match="power of two"):
+        residency.plan_windows(pidx, valid, 60, 4, 100)
+
+
+def test_resolve_fuse():
+    assert residency.resolve_fuse("reference") is None
+    spec = residency.resolve_fuse("fused", 4, 100, "torch")
+    assert (spec.window, spec.max_rows, spec.backend) == (4, 128, "torch")
+    assert residency.resolve_fuse("fused").backend is None
+    with pytest.raises(ValueError):
+        residency.resolve_fuse("fused", fuse_backend="pallas")
+    with pytest.raises(ValueError):
+        residency.resolve_fuse("bogus")
+    with pytest.raises(ValueError):
+        residency.resolve_fuse("fused", fuse_window=0)
