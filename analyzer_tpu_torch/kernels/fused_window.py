@@ -18,14 +18,13 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
 import threading
 
 import numpy as np
 import torch
 
 from analyzer_tpu_torch.config import RatingConfig
-from analyzer_tpu_torch.native_build import build_and_load, build_log
+from analyzer_tpu_torch.native_build import build_and_load, build_log, nvcc_path
 from analyzer_tpu_torch.ops.trueskill import _f32
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -57,17 +56,7 @@ _F = ctypes.c_float
 
 def nvcc_command() -> list[str]:
     """The nvcc command line the kernel is built with."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
-    if nvcc is None or not os.path.exists(nvcc):
-        nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        raise RuntimeError(
-            "nvcc not found (no CUDA_HOME/bin/nvcc and none on PATH); the "
-            "fused-window kernel cannot be built"
-        )
-    return [nvcc, *NVCC_FLAGS]
+    return [nvcc_path(), *NVCC_FLAGS]
 
 
 def load() -> ctypes.CDLL:

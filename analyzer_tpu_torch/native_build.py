@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
 
@@ -61,6 +62,22 @@ def build_and_load(
             if os.path.exists(tmp):
                 os.unlink(tmp)
     return ctypes.CDLL(lib)
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else the one on PATH.
+    Raises where there is none (a machine without the CUDA toolkit)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
+    if nvcc is None or not os.path.exists(nvcc):
+        nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (no CUDA_HOME/bin/nvcc and none on PATH); the "
+            "CUDA kernels cannot be built"
+        )
+    return nvcc
 
 
 def build_log(name: str, command: list[str], files: list[str]) -> str:

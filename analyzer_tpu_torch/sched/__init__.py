@@ -25,7 +25,7 @@ from analyzer_tpu_torch.sched.residency import (
     rate_window_checked,
     resolve_fuse,
 )
-from analyzer_tpu_torch.sched.runner import HistoryOutputs, rate_history
+from analyzer_tpu_torch.sched.runner import HistoryOutputs, rate_history, rate_stream
 
 __all__ = [
     "DeviceFeed",
@@ -45,6 +45,7 @@ __all__ = [
     "pack_schedule",
     "plan_windows",
     "rate_history",
+    "rate_stream",
     "rate_window_checked",
     "resolve_fuse",
 ]

@@ -181,12 +181,18 @@ class Slab:
 
 
 def stage_chunk(sched, start: int, stop: int, pin: bool) -> Slab:
-    """The reference runner's chunk: ``[S', B, 2, T]`` player rows and the
-    ``[S', B]`` winner / mode_id / afk scalars (parts 0..3)."""
+    """The reference runner's chunk of a packed schedule
+    (:func:`stage_window`)."""
     check = getattr(sched, "check_compact_invariant", None)
     if check is not None:
         check(start, stop)
     pidx, _mask, winner, mode_id, afk = sched.host_window(start, stop)
+    return stage_window(pidx, winner, mode_id, afk, pin)
+
+
+def stage_window(pidx, winner, mode_id, afk, pin: bool) -> Slab:
+    """A materialized window's ``[S', B, 2, T]`` player rows and ``[S', B]``
+    winner / mode_id / afk scalars, packed into one slab (parts 0..3)."""
     slab = Slab()
     for arr in (pidx, winner, mode_id, afk):
         slab.add(arr)

@@ -311,7 +311,12 @@ def _assign_supersteps_py(stream: MatchStream) -> np.ndarray:
 
 
 def assign_batches(
-    stream: MatchStream, capacity: int
+    stream: MatchStream,
+    capacity: int,
+    progress: np.ndarray | None = None,
+    out: np.ndarray | None = None,
+    out_slot: np.ndarray | None = None,
+    on_progress=None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Capacity-aware first-fit batch index per match.
 
@@ -322,20 +327,55 @@ def assign_batches(
     with later matches whose dependencies are met.
 
     Returns ``([N] batch id, [N] slot within batch)`` int64, -1 for
-    non-ratable matches; slot order within a batch is stream order."""
+    non-ratable matches; slot order within a batch is stream order.
+
+    For a streamed consumer on another thread (``sched.runner.
+    rate_stream``): ``progress`` (``[2]`` int64) receives (matches
+    processed, batch watermark) as the loop runs and ``(N, batches used)``
+    at the end; ``out``/``out_slot`` are caller-allocated result buffers
+    (int64, size N, C-contiguous) whose entries below ``progress[0]`` are
+    final. ``on_progress`` (zero-argument callable) is called by the python
+    loop at every publish; the native loop runs without the GIL and cannot
+    call back, so a consumer of it polls."""
     lib = _packer()
     if lib is None:
-        return _assign_batches_first_fit_py(stream, capacity)
-    return _native.assign_batches_first_fit(lib, stream, capacity)
+        return _assign_batches_first_fit_py(
+            stream, capacity, progress, out, out_slot, on_progress
+        )
+    return _native.assign_batches_first_fit(
+        lib, stream, capacity, progress, out, out_slot
+    )
+
+
+#: Progress-publish interval of the python first-fit loop, in matches (a
+#: power of two, so the check is one mask).
+_PY_PROGRESS_EVERY = 2048
 
 
 def _assign_batches_first_fit_py(
-    stream: MatchStream, capacity: int
+    stream: MatchStream,
+    capacity: int,
+    progress: np.ndarray | None = None,
+    out: np.ndarray | None = None,
+    out_slot: np.ndarray | None = None,
+    on_progress=None,
 ) -> tuple[np.ndarray, np.ndarray]:
     n = stream.n_matches
-    out = np.full(n, -1, dtype=np.int64)
-    out_slot = np.full(n, -1, dtype=np.int64)
+    for name, buf, size in (("out", out, n), ("out_slot", out_slot, n),
+                            ("progress", progress, 2)):
+        if buf is not None:
+            _native.check_out_buffer(name, buf, size)
+    if out is None:
+        out = np.full(n, -1, dtype=np.int64)
+    else:  # the loop below writes only the ratable entries
+        out.fill(-1)
+    if out_slot is None:
+        out_slot = np.full(n, -1, dtype=np.int64)
+    else:
+        out_slot.fill(-1)
     if n == 0:
+        if progress is not None:
+            progress[:] = (0, 0)
         return out, out_slot
     n_players = int(stream.player_idx.max()) + 1
     last = np.full(max(n_players, 1), -1, dtype=np.int64)
@@ -362,6 +402,13 @@ def _assign_batches_first_fit_py(
     ratable = stream.ratable
     idx = stream.player_idx
     for i in range(n):
+        if progress is not None and i and not (i & (_PY_PROGRESS_EVERY - 1)):
+            # Entries [0, i) are final (the GIL orders the buffer writes
+            # before this store, as the C loop's release store does).
+            progress[1] = find(0)
+            progress[0] = i
+            if on_progress is not None:
+                on_progress()
         if not ratable[i]:
             continue
         players = idx[i].ravel()
@@ -375,6 +422,10 @@ def _assign_batches_first_fit_py(
             ensure(b + 1)
             next_free[b] = b + 1
         last[players] = b
+    if progress is not None:
+        # Batches actually used: len(fill) may count an empty successor
+        # pre-created when the last batch filled to exact capacity.
+        progress[:] = (n, int(out.max()) + 1)
     return out, out_slot
 
 

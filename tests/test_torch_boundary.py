@@ -41,7 +41,17 @@ def test_import_leaves_jax_and_reference_out():
         "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'analyzer_tpu'))\n"
         "assert not leaked, leaked\n"
-        "assert 'analyzer_tpu_torch.sched.runner' in sys.modules\n"
+        "for name in ('sched.runner', 'cli', '__main__', 'io.checkpoint',\n"
+        "             'io.csv_codec', 'experiments.scatter_floor',\n"
+        "             'kernels.row_scatter'):\n"
+        "    assert 'analyzer_tpu_torch.' + name in sys.modules, name\n"
+        # importing builds nothing, starts no thread and parses no argv
+        "import threading\n"
+        "from analyzer_tpu_torch.kernels import fused_window, row_scatter\n"
+        "from analyzer_tpu_torch.sched import _native\n"
+        "assert fused_window._lib is None and row_scatter._lib is None\n"
+        "assert _native._lib is None\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", probe],

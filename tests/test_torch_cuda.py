@@ -1,6 +1,7 @@
-"""The hand-written CUDA fused-window kernel on the card: held against its
-plain PyTorch version on a small window, its launch counter, and the fused
-path against the reference path on the card. Every test needs a CUDA
+"""The hand-written CUDA kernels on the card: the fused window held against
+its plain PyTorch version on a small window, its launch counter, and the
+fused path against the reference path on the card; the row scatter held
+against ``index_copy_``, bit for bit. Every test needs a CUDA
 device (marker ``cuda``) and skips with a reason without one. On the card,
 where JAX is not installed, run them without the suite's conftest:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``."""
@@ -85,3 +86,21 @@ def test_fused_path_is_the_kernel_on_cuda(cuda):
         slot_rows, sidx, winner, mode_id, afk = _window(state, sched, 0, 4)
         fused_window_table(state.table.clone(), slot_rows, sidx, winner, mode_id,
                            afk, CFG, False, backend="torch")
+
+
+def test_row_scatter_matches_index_copy_and_counts(cuda):
+    from analyzer_tpu_torch.kernels import row_scatter as rs
+
+    rng = np.random.default_rng(3)
+    for width, n_rows in ((16, 5120), (128, 777)):
+        idx = torch.from_numpy(
+            rng.choice(20000, size=n_rows, replace=False).astype(np.int32)).to(cuda)
+        rows = torch.from_numpy(rng.random((n_rows, width)).astype(np.float32)).to(cuda)
+        table = torch.from_numpy(rng.random((20000, width)).astype(np.float32)).to(cuda)
+        before = rs.launches
+        got = rs.row_scatter(table.clone(), idx, rows, check=True)
+        assert rs.launches == before + 1
+        want = rs.row_scatter_plain(table.clone(), idx, rows)
+        assert rs.launches == before + 1  # the plain version is not counted
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
