@@ -59,6 +59,7 @@ def _window_plain(ws, slot_idx, winner, mode_id, afk, cfg, collect):
 def fused_window_table(
     table, slot_rows, slot_idx, winner, mode_id, afk,
     cfg: RatingConfig, collect: bool, backend: str | None = None,
+    n_steps: int | None = None,
 ):
     """The fused window, in place on a raw table.
 
@@ -71,8 +72,10 @@ def fused_window_table(
     ``backend`` None or "cuda" runs the kernel wrapper (the kernel on a
     CUDA table, its plain version on a CPU table); "torch" runs the plain
     version and is refused on a CUDA table, where the fused path is always
-    the kernel. Returns ``(table, ys)``; inert padded steps produce ys rows
-    the caller drops through its slot->match map."""
+    the kernel. ``n_steps`` (default K) is the window's real step count;
+    the steps after it are inert padding, which the kernel does not loop.
+    Returns ``(table, ys)``; inert padded steps produce ys rows the caller
+    drops through its slot->match map."""
     if backend == "torch" and table.is_cuda:
         raise ValueError(
             "fuse_backend='torch' runs the plain window on CPU tensors only; "
@@ -85,7 +88,8 @@ def fused_window_table(
     else:
         from analyzer_tpu_torch.kernels.fused_window import fused_window
 
-        ws, ys = fused_window(ws, slot_idx, winner, mode_id, afk, cfg, collect)
+        ws, ys = fused_window(ws, slot_idx, winner, mode_id, afk, cfg, collect,
+                              n_steps=n_steps)
     # The ONE per-window writeback. Duplicate indices (unused slots and
     # slot 0 all map to the padding row) carry bit-identical pristine pad
     # rows — unused slots are never touched and slot 0 is never written —

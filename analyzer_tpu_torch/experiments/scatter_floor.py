@@ -10,13 +10,14 @@ Same P, R and step counts as the JAX harness. Variants:
   * ``torch16`` / ``torch128`` — ``index_copy_`` (one PyTorch call per
     step) on a table of 16 / 128 floats per row;
   * ``cuda16`` / ``cuda128`` — the hand-written row-scatter kernel
-    (:mod:`analyzer_tpu_torch.kernels.row_scatter`), one launch per step.
+    (:mod:`analyzer_tpu_torch.kernels.row_scatter`): the whole run of S
+    steps is one ``row_scatter_steps`` call, one cooperative launch whose
+    grid barrier orders step s before step s + 1 (steps s and s + 8 write
+    the same rows).
 
 The JAX harness's NSEM (DMA copies in flight) has no counterpart: the
-kernel has no DMA ring. Steps s and s + 8 write the same rows, so the
-steps are issued one launch each, in stream order — one launch over all S
-steps would race. Each timed run starts from a fresh table; the best of 3
-is printed as us/step and ns/row.
+kernel has no DMA ring. Each timed run starts from a fresh table; the best
+of 3 runs, divided by S, is printed as us/step and ns/row.
 
     python -m analyzer_tpu_torch.experiments.scatter_floor [--device cpu]
 
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 from analyzer_tpu_torch.device import resolve_device
-from analyzer_tpu_torch.kernels.row_scatter import row_scatter
+from analyzer_tpu_torch.kernels.row_scatter import row_scatter, row_scatter_steps
 
 P = 1_500_000
 R = 5120  # rows per superstep: B=512 matches x 10 player slots
@@ -41,6 +42,8 @@ R = 5120  # rows per superstep: B=512 matches x 10 player slots
 STEPS = {16: 400, 128: 50}
 #: Distinct index/row sets; step s uses set s % N_SETS.
 N_SETS = 8
+#: Timed runs per variant (after one untimed run); the best is printed.
+REPEATS = 3
 
 
 def scatter_torch(table, idx, rows):
@@ -53,12 +56,31 @@ def scatter_cuda(table, idx, rows):
     row_scatter(table, idx, rows)
 
 
-#: name -> (row width, step function, index dtype)
+def run_steps(step, table, idx, rows):
+    """Every step of a run, in order, in place on ``table``: one ``step``
+    call per step."""
+    for s in range(idx.shape[0]):
+        step(table, idx[s], rows[s])
+    return table
+
+
+def run_torch(table, idx, rows):
+    """A run through ``index_copy_``, one call per step (``idx`` int64)."""
+    return run_steps(scatter_torch, table, idx, rows)
+
+
+def run_cuda(table, idx, rows):
+    """A run through the row-scatter kernel: every step in one launch
+    (``idx`` int32)."""
+    return row_scatter_steps(table, idx, rows)
+
+
+#: name -> (row width, run function, index dtype)
 VARIANTS = {
-    "torch16": (16, scatter_torch, torch.int64),
-    "torch128": (128, scatter_torch, torch.int64),
-    "cuda16": (16, scatter_cuda, torch.int32),
-    "cuda128": (128, scatter_cuda, torch.int32),
+    "torch16": (16, run_torch, torch.int64),
+    "torch128": (128, run_torch, torch.int64),
+    "cuda16": (16, run_cuda, torch.int32),
+    "cuda128": (128, run_cuda, torch.int32),
 }
 
 
@@ -75,35 +97,28 @@ def make_xs(s_steps: int, width: int, rng: np.random.Generator,
     return idx[step_set], rows[step_set]
 
 
-def run_steps(step, table, idx, rows):
-    """Every step of a run, in order, in place on ``table``."""
-    for s in range(idx.shape[0]):
-        step(table, idx[s], rows[s])
-    return table
-
-
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
 def time_variant(name: str, device, rng: np.random.Generator,
-                 n_players: int = P, n_rows: int = R, repeats: int = 3) -> float:
+                 n_players: int = P, n_rows: int = R, repeats: int = REPEATS) -> float:
     """Best-of-``repeats`` seconds per step of a variant; a fresh zero table
     for every timed run."""
-    width, step, idx_dtype = VARIANTS[name]
+    width, run, idx_dtype = VARIANTS[name]
     device = resolve_device(device)
     idx, rows = make_xs(STEPS[width], width, rng, n_players, n_rows)
     idx = torch.from_numpy(idx).to(device=device, dtype=idx_dtype)
     rows = torch.from_numpy(rows).to(device)
-    run_steps(step, torch.zeros((n_players, width), device=device), idx, rows)
+    run(torch.zeros((n_players, width), device=device), idx, rows)
     _sync(device)  # built, compiled and warm
     best = float("inf")
     for _ in range(repeats):
         table = torch.zeros((n_players, width), device=device)
         _sync(device)
         t0 = time.perf_counter()
-        run_steps(step, table, idx, rows)
+        run(table, idx, rows)
         _sync(device)
         best = min(best, time.perf_counter() - t0)
     return best / idx.shape[0]

@@ -1,9 +1,10 @@
 """Wrapper of the hand-written CUDA fused-window kernel (``csrc/fused_window.cu``).
 
 :func:`fused_window` runs one fused window in place on a working set:
-on a CUDA tensor it launches the kernel (building it with nvcc for
-``sm_90a`` on first use) or raises; on a CPU tensor — and only because the
-tensor lies on the CPU — it runs the kernel's plain PyTorch version,
+on a CUDA tensor it launches the kernel — one thread-block cluster of
+CTAs per window (:data:`CLUSTER_PREFERENCE`), built with nvcc for
+``sm_90a`` on first use — or raises; on a CPU tensor — and only because
+the tensor lies on the CPU — it runs the kernel's plain PyTorch version,
 :func:`analyzer_tpu_torch.core.fused._window_plain`. There is no fallback
 from the card to the plain version.
 
@@ -42,16 +43,25 @@ HOST_COMMAND = [
     "g++", "-O2", "-ffp-contract=off", "-shared", "-fPIC", "-std=c++17",
 ]
 
+#: CTAs in the thread-block cluster that runs one window, where the caller
+#: names none: the first of these whose cluster fits on the card. 16 (a
+#: non-portable cluster size) ran a north-star window ~17% faster than 8
+#: (the portable maximum) on an H100 (PERF.md).
+CLUSTER_PREFERENCE = (16, 8)
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+
 #: Number of kernel launches so far (set to 0 to start a count).
 launches = 0
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _host_lib: ctypes.CDLL | None = None
+_resident: dict = {}  # (device, team, batch, cluster) -> clusters that fit
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 
 
 def nvcc_command() -> list[str]:
@@ -68,9 +78,11 @@ def load() -> ctypes.CDLL:
                 "fused_window", nvcc_command(), [SOURCE], HEADERS
             )
             lib.fused_window_launch.argtypes = [
-                _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P,
+                _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P,
             ]
             lib.fused_window_launch.restype = _I
+            lib.fused_window_occupancy.argtypes = [_I, _I, _I, _I, _IP, _IP, _IP]
+            lib.fused_window_occupancy.restype = _I
             _lib = lib
         return _lib
 
@@ -78,6 +90,40 @@ def load() -> ctypes.CDLL:
 def kernel_build_log() -> str:
     """nvcc's messages (``-Xptxas -v``: registers, spills) of the build."""
     return build_log("fused_window", nvcc_command(), [SOURCE, *HEADERS])
+
+
+def launch_shape(device: torch.device, team: int, batch: int,
+                 cluster: int) -> dict:
+    """The cluster launch of a window on ``device``: ``threads`` and
+    ``smem`` (bytes) per CTA and ``clusters``, how many such clusters the
+    card holds at once (``cudaOccupancyMaxActiveClusters``). Cached."""
+    key = (device.index or 0, team, batch, cluster)
+    if key not in _resident:
+        n, threads, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+        err = load().fused_window_occupancy(
+            batch, team, cluster, key[0], ctypes.byref(n), ctypes.byref(threads),
+            ctypes.byref(smem),
+        )
+        if err != 0:
+            raise RuntimeError(
+                f"fused_window occupancy query failed for a cluster of {cluster} "
+                f"CTAs (B={batch}, T={team}): CUDA error {err}"
+            )
+        _resident[key] = {"clusters": n.value, "threads": threads.value,
+                          "smem": smem.value}
+    return _resident[key]
+
+
+def pick_cluster(device: torch.device, team: int, batch: int) -> int:
+    """The first size of :data:`CLUSTER_PREFERENCE` whose cluster fits on
+    ``device`` for this team size and batch; raises where none does."""
+    for cluster in CLUSTER_PREFERENCE:
+        if launch_shape(device, team, batch, cluster)["clusters"] >= 1:
+            return cluster
+    raise RuntimeError(
+        f"no cluster of {CLUSTER_PREFERENCE} CTAs fits on {device} "
+        f"(B={batch}, T={team})"
+    )
 
 
 def _check(ws, slot_idx, winner, mode_id, afk) -> tuple[int, int, int]:
@@ -107,6 +153,16 @@ def _check(ws, slot_idx, winner, mode_id, afk) -> tuple[int, int, int]:
     return k, b, t
 
 
+def _check_steps(n_steps, k: int) -> int:
+    if n_steps is None:
+        return k
+    if isinstance(n_steps, bool) or not isinstance(n_steps, (int, np.integer)):
+        raise ValueError(f"n_steps must be an int, got {type(n_steps).__name__}")
+    if not 0 <= n_steps <= k:
+        raise ValueError(f"n_steps must lie in [0, {k}] (the window's K), got {n_steps}")
+    return int(n_steps)
+
+
 def fused_window(
     ws: torch.Tensor,
     slot_idx: torch.Tensor,
@@ -115,16 +171,30 @@ def fused_window(
     afk: torch.Tensor,
     cfg: RatingConfig,
     collect: bool,
+    n_steps: int | None = None,
+    cluster: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One fused window, in place on ``ws`` ``[n_slots, 16]`` float32.
 
     ``slot_idx`` ``[K, B, 2, T]`` and ``winner``/``mode_id``/``afk``
     ``[K, B]`` are int32 (afk 0/1). Slot indices must lie in
     ``[0, n_slots)`` — the residency planner guarantees it and
-    ``sched.residency.check_plan`` validates untrusted plans. Returns
-    ``(ws, ys)`` with ``ys`` ``[K, B, 3 + 10T]`` when ``collect``."""
+    ``sched.residency.check_plan`` validates untrusted plans.
+
+    ``n_steps`` (default K) is the window's real step count: steps from
+    ``n_steps`` on must be inert — each match non-ratable or on slot 0
+    only, as the feed pads short windows — so they write nothing. The
+    kernel loops only the real steps and computes the inert tail's outputs
+    (with ``collect``) after them; the plain version runs all K steps.
+    ``cluster`` is the number of CTAs in the window's thread-block cluster
+    (one of :data:`CLUSTER_SIZES`; None picks by :func:`pick_cluster`).
+    Returns ``(ws, ys)`` with ``ys`` ``[K, B, 3 + 10T]`` when
+    ``collect``."""
     global launches
     k, b, t = _check(ws, slot_idx, winner, mode_id, afk)
+    n = _check_steps(n_steps, k)
+    if cluster is not None and cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster must be one of {CLUSTER_SIZES}, got {cluster}")
     if ws.device.type == "cpu":
         from analyzer_tpu_torch.core.fused import _window_plain
 
@@ -132,17 +202,26 @@ def fused_window(
     if ws.device.type != "cuda":
         raise ValueError(f"fused_window runs on cuda or cpu, not {ws.device}")
     lib = load()
+    if cluster is None:
+        cluster = pick_cluster(ws.device, t, b)
+    shape = launch_shape(ws.device, t, b, cluster)
+    if shape["clusters"] < 1:
+        raise RuntimeError(
+            f"no cluster of {cluster} CTAs x {shape['threads']} threads with "
+            f"{shape['smem']} B of shared memory fits on {ws.device} "
+            f"(B={b}, T={t}); use a smaller cluster"
+        )
     ys = (
         torch.empty((k, b, 3 + 10 * t), dtype=torch.float32, device=ws.device)
         if collect else None
     )
-    scratch = torch.empty((b, 2 * t, 4), dtype=torch.float32, device=ws.device)
     stream = torch.cuda.current_stream(ws.device).cuda_stream
     err = lib.fused_window_launch(
         ws.data_ptr(), slot_idx.data_ptr(), winner.data_ptr(),
         mode_id.data_ptr(), afk.data_ptr(),
-        ys.data_ptr() if ys is not None else None, scratch.data_ptr(),
-        k, b, t, _f32(cfg.tau2), _f32(cfg.beta2), ws.device.index or 0, stream,
+        ys.data_ptr() if ys is not None else None,
+        k, n, b, t, cluster, _f32(cfg.tau2), _f32(cfg.beta2),
+        ws.device.index or 0, stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_window kernel launch failed: CUDA error {err}")
@@ -151,7 +230,8 @@ def fused_window(
 
 
 def load_host() -> ctypes.CDLL:
-    """The host (g++) build of the kernel's phases, for the CPU tests."""
+    """The host (g++) build of the kernel's lane functions, for the CPU
+    tests."""
     global _host_lib
     with _lock:
         if _host_lib is None:
@@ -159,18 +239,21 @@ def load_host() -> ctypes.CDLL:
                 "fused_window_host", HOST_COMMAND, [HOST_SOURCE], HEADERS
             )
             lib.fused_window_host.argtypes = [
-                _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
             ]
             lib.fused_window_host.restype = _I
             _host_lib = lib
         return _host_lib
 
 
-def fused_window_host(ws, slot_idx, winner, mode_id, afk, cfg, collect):
-    """The kernel's per-match phases from ``rate_match.cuh``, built with g++
-    and run as a sequential CPU loop on numpy arrays (``ws`` is updated in
-    place). Returns ``(ws, ys | None)``."""
+def fused_window_host(ws, slot_idx, winner, mode_id, afk, cfg, collect,
+                      n_steps=None):
+    """The kernel's lane functions from ``rate_match.cuh``, built with g++
+    and run as a sequential CPU loop in lane order on numpy arrays (``ws``
+    is updated in place): the ``n_steps`` real steps, then the inert tail's
+    outputs, as the kernel runs them. Returns ``(ws, ys | None)``."""
     k, b, _, t = slot_idx.shape
+    n = _check_steps(n_steps, k)
     arrays = [np.ascontiguousarray(x, np.int32)
               for x in (slot_idx, winner, mode_id, afk)]
     if ws.dtype != np.float32 or not ws.flags["C_CONTIGUOUS"]:
@@ -179,7 +262,7 @@ def fused_window_host(ws, slot_idx, winner, mode_id, afk, cfg, collect):
     rc = load_host().fused_window_host(
         ws.ctypes.data, *(a.ctypes.data for a in arrays),
         ys.ctypes.data if ys is not None else None,
-        k, b, t, _f32(cfg.tau2), _f32(cfg.beta2),
+        k, n, b, t, _f32(cfg.tau2), _f32(cfg.beta2),
     )
     if rc != 0:
         raise ValueError(f"team size must be 1..5, got {t}")

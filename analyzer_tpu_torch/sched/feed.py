@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import threading
 from collections import deque
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -199,11 +200,26 @@ def stage_window(pidx, winner, mode_id, afk, pin: bool) -> Slab:
     return slab.finish(pin)
 
 
+class StagedWindow(NamedTuple):
+    """One fused window of a staged chunk: the slab part indices of its
+    slot_rows, slot_idx, winner, mode_id and afk, and its real step count
+    (the plan's ``n_steps``; the rest of the window's K steps are inert
+    padding)."""
+
+    slot_rows: int
+    slot_idx: int
+    winner: int
+    mode_id: int
+    afk: int
+    n_steps: int
+
+
 class FusedChunk:
     """One chunk staged for the fused window: the slab holding every
-    window's (slot_rows, slot_idx, winner, mode_id, afk) parts, the part
-    indices per window, the padded slot->match rows for collect reordering
-    (``flat``, or None), and the chunk's planner totals."""
+    window's (slot_rows, slot_idx, winner, mode_id, afk) parts, a
+    :class:`StagedWindow` per window, the padded slot->match rows for
+    collect reordering (``flat``, or None), and the chunk's planner
+    totals."""
 
     __slots__ = ("slab", "windows", "flat", "stats")
 
@@ -255,7 +271,7 @@ def stage_fused_windows(
     s0 = 0
     for plan in plans:
         s1 = s0 + plan.n_steps
-        windows.append((
+        windows.append(StagedWindow(
             slab.add(plan.slot_rows),
             slab.add(_pad_window_steps(plan.slot_idx, k, 0)),
             slab.add(_pad_window_steps(winner[s0:s1], k, 0)),
@@ -263,6 +279,7 @@ def stage_fused_windows(
                 mode_id[s0:s1], k, constants.UNSUPPORTED_MODE_ID
             )),
             slab.add(_pad_window_steps(afk[s0:s1].astype(np.int32), k, 0)),
+            plan.n_steps,
         ))
         if flat_parts is not None:
             flat_parts.append(_pad_window_steps(match_idx[s0:s1], k, -1))

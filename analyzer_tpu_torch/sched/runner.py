@@ -86,11 +86,11 @@ def _dispatch_fused_chunk(table, staged, views, cfg, collect, backend):
     outputs when collecting — the reference chunk's layout plus inert
     padded steps, which ``staged.flat`` maps to -1."""
     ys_parts = []
-    for parts in staged.windows:
-        slot_rows, slot_idx, winner, mode_id, afk = (views[i] for i in parts)
+    for win in staged.windows:
+        slot_rows, slot_idx, winner, mode_id, afk = (views[i] for i in win[:5])
         _, ys = fused_window_table(
             table, slot_rows, slot_idx, winner, mode_id, afk,
-            cfg, collect, backend,
+            cfg, collect, backend, n_steps=win.n_steps,
         )
         if collect:
             ys_parts.append(ys)

@@ -17,15 +17,18 @@ lines:
   3. scatter: the scatter-floor experiment
      (``python -m analyzer_tpu_torch.experiments.scatter_floor``) at
      P=1.5M, R=5120, W=16 and 128, with the row-scatter kernel's launches
-     counted over it; then S steps (400 at W=16, 50 at W=128) through the
-     kernel and through ``index_copy_`` from the same starting table must
-     give bit-identical tables, and both are timed per step;
+     counted over it (one per run of S steps); then S steps (400 at W=16,
+     50 at W=128) through ``row_scatter_steps`` (one launch), through
+     ``row_scatter`` (a launch per step) and through ``index_copy_`` from
+     the same starting table must give bit-identical tables, and all three
+     are timed per step, by CUDA events and by the profiler's device time;
   4. kernel vs plain at full width: the first 8 fused windows of the
-     schedule through the fused-window kernel and its plain PyTorch
-     version on the same CUDA inputs (gates and NaN pattern exact, floats
-     within ``KERNEL_RTOL``); then the same history prefix through the
-     kernel at fuse windows 1, 4 and 16, and twice at 16, must give
-     bit-identical tables;
+     schedule, most of them cut short by a spill and padded with an inert
+     tail, through the fused-window kernel (clusters of 8 and 16 CTAs, the
+     tail skipped) and its plain PyTorch version on the same CUDA inputs
+     (gates and NaN pattern exact, floats within ``KERNEL_RTOL``); then
+     the same history prefix through the kernel at fuse windows 1, 4 and
+     16, and twice at 16, must give bit-identical tables;
   5. main: ``pack_schedule(windowed=True)`` + ``rate_history(kernel=
      "fused")`` at full size, with the kernel's launch count taken over
      exactly that run (it must equal the windows dispatched), then the same
@@ -38,9 +41,17 @@ lines:
      ``mean_mu``; on a 1M-match prefix a bounded run with periodic
      checkpoints plus ``--resume`` must equal a one-shot checkpointed run
      bit for bit;
-  8. one ``{"kernels": [...]}`` line: per kernel its launches on its path,
+  8. timing: the fused window per window at the main path's shapes
+     (``python -m analyzer_tpu_torch.experiments.window_timing``'s
+     measurement: windows cut to 1..16 looped steps for the per-step
+     slope, then as the main path calls it, with every step looped, and
+     with a cluster of 16), beside its plain version and its bound; then
+     one ``{"kernels": [...]}`` line: per kernel its launches on its path,
      the error against its plain version, its time at its path's shapes
-     beside the plain version's, the library call's and the card's bound.
+     beside the plain version's, the library call's and the card's bound,
+     and the time of its earlier launch pattern measured in this run (the
+     row scatter launched per step; the fused window with its inert tail
+     looped).
 
 ``--matches``/``--players`` shrink the history for a quick rehearsal on
 the card. The last line is ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -180,16 +191,20 @@ def device_ms(fn, calls: int) -> float | None:
 
 def scatter_phase(dev) -> dict:
     """Phase 3: the scatter-floor experiment through the row-scatter
-    kernel, then the kernel against index_copy_ at each width."""
+    kernel (one launch per run), then, at each width, the multi-step kernel
+    and the one-step kernel launched per step against index_copy_."""
     from analyzer_tpu_torch.experiments import scatter_floor as sf
     from analyzer_tpu_torch.kernels import row_scatter as rs
 
     rs.launches = 0
     sf.main([])
     launches = rs.launches
-    if launches == 0:
-        raise AssertionError("the scatter-floor experiment never launched row_scatter")
-    log(f"[scatter] experiment: row_scatter launches {launches}")
+    runs = sum(1 + sf.REPEATS for name in sf.VARIANTS if name.startswith("cuda"))
+    if launches != runs:
+        raise AssertionError(
+            f"the scatter-floor experiment launched row_scatter {launches} times "
+            f"for {runs} runs of the kernel (one launch per run)")
+    log(f"[scatter] experiment: row_scatter launches {launches}, one per run")
     out = {"launches": launches, "max_abs_err": 0.0}
     for w in (16, 128):
         steps = sf.STEPS[w]
@@ -199,35 +214,48 @@ def scatter_phase(dev) -> dict:
         rows = torch.from_numpy(rows_np).to(dev)
         gen = torch.Generator(device=dev).manual_seed(SEED)
         table0 = torch.rand((sf.P, w), generator=gen, device=dev)
-        got = sf.run_steps(sf.scatter_cuda, table0.clone(), idx, rows)
-        want = sf.run_steps(rs.row_scatter_plain, table0.clone(), idx, rows)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if not torch.equal(got, want):
-            raise AssertionError(f"row_scatter at W={w} differs from index_copy_ (max abs {err})")
-        out["max_abs_err"] = max(out["max_abs_err"], err)
-        del got, want
+        want = rs.row_scatter_steps_plain(table0.clone(), idx, rows)
+        errs = []
+        for name, run in (("row_scatter_steps", sf.run_cuda),
+                          ("row_scatter per step",
+                           lambda t, i, r: sf.run_steps(sf.scatter_cuda, t, i, r))):
+            got = run(table0.clone(), idx, rows)
+            torch.cuda.synchronize()
+            errs.append(float((got - want).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"{name} at W={w} differs from index_copy_ (max abs {errs[-1]})")
+            del got
+        out["max_abs_err"] = max(out["max_abs_err"], *errs)
+        del want
         table = table0.clone()
-        ms = cuda_ms(lambda: sf.run_steps(sf.scatter_cuda, table, idx, rows), 5) / steps
+        ms = cuda_ms(lambda: sf.run_cuda(table, idx, rows), 5) / steps
+        step_ms = cuda_ms(
+            lambda: sf.run_steps(sf.scatter_cuda, table, idx, rows), 5) / steps
         plain_ms = cuda_ms(
-            lambda: sf.run_steps(rs.row_scatter_plain, table, idx, rows), 5) / steps
-        library_ms = cuda_ms(
-            lambda: sf.run_steps(sf.scatter_torch, table, idx64, rows), 5) / steps
+            lambda: rs.row_scatter_steps_plain(table, idx, rows), 5) / steps
+        library_ms = cuda_ms(lambda: sf.run_torch(table, idx64, rows), 5) / steps
         # The same runs' device time alone, without the host's launch gaps.
-        k_dev = device_ms(lambda: sf.run_steps(sf.scatter_cuda, table, idx, rows), steps)
-        l_dev = device_ms(lambda: sf.run_steps(sf.scatter_torch, table, idx64, rows), steps)
+        k_dev = device_ms(lambda: sf.run_cuda(table, idx, rows), steps)
+        s_dev = device_ms(lambda: sf.run_steps(sf.scatter_cuda, table, idx, rows), steps)
+        l_dev = device_ms(lambda: sf.run_torch(table, idx64, rows), steps)
         n_bytes = 2 * sf.R * w * 4 + sf.R * 4  # rows in, rows out, indices in
         bound_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S
         key = "" if w == 16 else f"_w{w}"
         out.update({f"ms{key}": ms, f"plain_ms{key}": plain_ms,
                     f"library_ms{key}": library_ms, f"bound_ms{key}": bound_ms,
                     f"bound_by{key}": "bytes", f"device_ms{key}": k_dev,
+                    f"step_launch_ms{key}": step_ms,
+                    f"step_launch_device_ms{key}": s_dev,
                     f"library_device_ms{key}": l_dev})
-        log(f"[scatter] W={w}: {steps} steps, kernel vs index_copy_ bit-identical "
-            f"(max abs err {err:g}); per step kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
-            f"index_copy_ {library_ms:.5f} ms, bound {bound_ms:.6f} ms (bytes, "
-            f"{n_bytes} B); kernel at {100 * bound_ms / ms:.1f}% of the bound; "
-            f"device time per step (profiler): kernel {k_dev} ms, index_copy_ {l_dev} ms")
+        log(f"[scatter] W={w}: {steps} steps; row_scatter_steps (one launch) and "
+            f"row_scatter (a launch per step) bit-identical to index_copy_ (max abs "
+            f"err {max(errs):g}); per step: row_scatter_steps {ms:.5f} ms, row_scatter "
+            f"per step {step_ms:.5f} ms, plain {plain_ms:.5f} ms, index_copy_ "
+            f"{library_ms:.5f} ms, bound {bound_ms:.6f} ms (bytes, {n_bytes} B); "
+            f"row_scatter_steps at {100 * bound_ms / ms:.1f}% of the bound; device "
+            f"time per step (profiler): row_scatter_steps {k_dev} ms, row_scatter "
+            f"per step {s_dev} ms, index_copy_ {l_dev} ms")
         del table, table0, rows, idx, idx64
     return out
 
@@ -259,6 +287,7 @@ def main(argv=None) -> int:
     from analyzer_tpu_torch.config import RatingConfig
     from analyzer_tpu_torch.core.fused import _window_plain
     from analyzer_tpu_torch.core.state import PlayerState
+    from analyzer_tpu_torch.experiments import window_timing
     from analyzer_tpu_torch.io.checkpoint import load_checkpoint
     from analyzer_tpu_torch.io.csv_codec import save_stream_npz
     from analyzer_tpu_torch.io.synthetic import synthetic_players, synthetic_stream
@@ -314,32 +343,44 @@ def main(argv=None) -> int:
     fuse = resolve_fuse("fused")
     chunk = stage_chunk_fused(sched, 0, PREFIX_STEPS, fuse, True, True)
     views = chunk.slab.to_device(dev)
+    # The first windows of the schedule; where none of them was cut short
+    # (a small rehearsal history), the first window with an inert tail too.
+    picked = chunk.windows[:N_CHECK_WINDOWS]
+    tails = [w for w in chunk.windows if w.n_steps < fuse.window]
+    if tails and all(w.n_steps == fuse.window for w in picked):
+        picked = picked[:-1] + tails[:1]
     windows = []
-    for parts in chunk.windows[:N_CHECK_WINDOWS]:
-        slot_rows, slot_idx, winner, mode_id, afk = (views[i] for i in parts)
+    for win in picked:
+        slot_rows, slot_idx, winner, mode_id, afk = (views[i] for i in win[:5])
         ws = state0.table.index_select(0, slot_rows.long())
-        windows.append((ws, slot_idx, winner, mode_id, afk))
+        windows.append((ws, slot_idx, winner, mode_id, afk, win.n_steps))
     worst_rel = 0.0
     worst_abs = 0.0
-    for ws, slot_idx, winner, mode_id, afk in windows:
+    for ws, slot_idx, winner, mode_id, afk, n_real in windows:
         ws_p, ys_p = _window_plain(ws.clone(), slot_idx, winner, mode_id, afk, cfg, True)
-        ws_k, ys_k = fw.fused_window(ws.clone(), slot_idx, winner, mode_id, afk, cfg, True)
-        torch.cuda.synchronize()
-        a_p, a_k = ws_p.cpu().numpy(), ws_k.cpu().numpy()
-        y_p, y_k = ys_p.cpu().numpy(), ys_k.cpu().numpy()
-        if not np.array_equal(np.isnan(a_p), np.isnan(a_k)):
-            raise AssertionError("kernel working set NaN pattern differs from plain")
-        if not np.array_equal(np.isnan(y_p), np.isnan(y_k)):
-            raise AssertionError("kernel outputs NaN pattern differs from plain")
-        if not np.array_equal(y_p[..., 1:3], y_k[..., 1:3]):
-            raise AssertionError("kernel gates (any_afk, updated) differ from plain")
-        worst_rel = max(worst_rel, rel_err(a_k, a_p), rel_err(y_k, y_p))
-        worst_abs = max(worst_abs, float(np.nanmax(np.abs(a_k - a_p))),
-                        float(np.nanmax(np.abs(y_k - y_p))))
+        a_p, y_p = ws_p.cpu().numpy(), ys_p.cpu().numpy()
+        for cluster in (8, 16):
+            ws_k, ys_k = fw.fused_window(ws.clone(), slot_idx, winner, mode_id, afk,
+                                         cfg, True, n_steps=n_real, cluster=cluster)
+            torch.cuda.synchronize()
+            a_k, y_k = ws_k.cpu().numpy(), ys_k.cpu().numpy()
+            if not np.array_equal(np.isnan(a_p), np.isnan(a_k)):
+                raise AssertionError("kernel working set NaN pattern differs from plain")
+            if not np.array_equal(np.isnan(y_p), np.isnan(y_k)):
+                raise AssertionError("kernel outputs NaN pattern differs from plain")
+            if not np.array_equal(y_p[..., 1:3], y_k[..., 1:3]):
+                raise AssertionError("kernel gates (any_afk, updated) differ from plain")
+            worst_rel = max(worst_rel, rel_err(a_k, a_p), rel_err(y_k, y_p))
+            worst_abs = max(worst_abs, float(np.nanmax(np.abs(a_k - a_p))),
+                            float(np.nanmax(np.abs(y_k - y_p))))
+    real_steps = [w[5] for w in windows]
+    if min(real_steps) >= fuse.window and args.matches >= N_MATCHES:
+        raise AssertionError("no checked window has an inert tail")
     log(f"[kernel-vs-plain] {len(windows)} windows (K={fuse.window}, "
         f"B={sched.batch_size}, T={sched.team_size}, spills in prefix "
-        f"{chunk.stats['spills']}): max rel err {worst_rel:.3e} "
-        f"(tol {KERNEL_RTOL:g}), max abs err {worst_abs:.3e}")
+        f"{chunk.stats['spills']}, real steps {real_steps}, the rest an inert "
+        f"tail), clusters of 8 and 16 CTAs, collect on: max rel err "
+        f"{worst_rel:.3e} (tol {KERNEL_RTOL:g}), max abs err {worst_abs:.3e}")
     if worst_rel > KERNEL_RTOL:
         raise AssertionError(f"kernel vs plain error {worst_rel} > {KERNEL_RTOL}")
 
@@ -487,31 +528,36 @@ def main(argv=None) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # -- 8. kernel times at the main path's shapes (collect off) -------------
-    k_ms, p_ms, b_ms, n_bytes, n_ops = [], [], [], 0, 0
-    for ws, slot_idx, winner, mode_id, afk in windows:
-        reps = 20
-        clones = [ws.clone() for _ in range(reps + 1)]
-        it = iter(clones)
-        k_ms.append(cuda_ms(
-            lambda: fw.fused_window(next(it), slot_idx, winner, mode_id, afk, cfg, False),
-            reps,
-        ))
+    slope = window_timing.measure(windows)
+    for n, r in slope["by_steps"].items():
+        log(f"[timing] fused_window, first {n:2d} steps of each window looped: "
+            f"{r['ms']:.5f} ms per window (events), device {r['device_ms']} ms")
+    main_call = slope["skip_tail"]
+    cluster = fw.pick_cluster(dev, sched.team_size, sched.batch_size)
+    c8 = window_timing.time_windows(windows, fuse.window, "real", cluster=8)
+    p_ms, b_ms, n_bytes, n_ops = [], [], 0, 0
+    for ws, slot_idx, winner, mode_id, afk, n_real in windows:
         p_ms.append(cuda_ms(
             lambda: _window_plain(ws.clone(), slot_idx, winner, mode_id, afk, cfg, False),
             2,
         ))
         live = int(torch.unique(slot_idx).numel())
         real = int((slot_idx != 0).flatten(2).any(-1).sum())
-        w_bytes = 2 * live * 64 + slot_idx.numel() * 4 + 3 * winner.numel() * 4
+        w_bytes = 2 * live * 64 + (slot_idx[:n_real].numel() + 3 * winner[:n_real].numel()) * 4
         w_ops = real * OPS_PER_MATCH
         n_bytes, n_ops = n_bytes + w_bytes, n_ops + w_ops
         b_ms.append(1e3 * max(w_bytes / PEAK_BYTES_PER_S, w_ops / PEAK_F32_OPS_PER_S))
-    ms, plain_ms, bound_ms = (float(np.mean(x)) for x in (k_ms, p_ms, b_ms))
+    ms, plain_ms, bound_ms = main_call["ms"], float(np.mean(p_ms)), float(np.mean(b_ms))
     bound_by = "bytes" if n_bytes / PEAK_BYTES_PER_S >= n_ops / PEAK_F32_OPS_PER_S else "operations"
-    log(f"[timing] fused_window per window (K={fuse.window}, B={sched.batch_size}): "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
-        f"({bound_by}); main-path kernel total ~{ms * launches / 1e3:.3f} s "
-        f"over {launches} launches")
+    log(f"[timing] fused_window per window (K={fuse.window}, B={sched.batch_size}, "
+        f"cluster of {cluster} CTAs, real steps looped, mean "
+        f"{slope['real_steps_mean']:.2f}): {ms:.5f} ms (events), device "
+        f"{main_call['device_ms']} ms; every step looped {slope['all_steps']['ms']:.5f} ms, "
+        f"device {slope['all_steps']['device_ms']} ms; cluster of 8: {c8['ms']:.5f} ms, "
+        f"device {c8['device_ms']} ms; per-step slope {slope['slope_ms_per_step']:.5f} ms "
+        f"+ {slope['intercept_ms']:.5f} ms per launch (fit of {slope['fit_of']}); plain "
+        f"{plain_ms:.4f} ms; bound {bound_ms:.6f} ms ({bound_by}); main-path kernel "
+        f"total ~{ms * launches / 1e3:.3f} s over {launches} launches")
 
     log(json.dumps({"kernels": [
         {
@@ -526,6 +572,12 @@ def main(argv=None) -> int:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,
+            "device_ms": main_call["device_ms"],
+            "all_steps_ms": slope["all_steps"]["ms"],
+            "cluster": cluster,
+            "cluster8_ms": c8["ms"],
+            "slope_ms_per_step": slope["slope_ms_per_step"],
+            "intercept_ms": slope["intercept_ms"],
         },
         {
             "name": "row_scatter",

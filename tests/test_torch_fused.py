@@ -14,9 +14,11 @@ below 5e-4.
 Inside the port: the fused path equals the reference path BIT FOR BIT on
 the CPU (same per-step math, different routing), at every window size,
 with spills and fillers, at every ``steps_per_chunk`` and prefetch depth.
-The g++ build of the kernel's phases (``rate_match.cuh``) is held against
-the plain window: the working set bit for bit, the outputs within a few
-ulps (glibc's expf/logf/erff against torch's).
+The g++ build of the kernel's lane functions (``rate_match.cuh``, run in
+the kernel's lane order) is held against the plain window: the working set
+bit for bit, the outputs within a few ulps (glibc's expf/logf/erff against
+torch's), also with the inert tail after ``n_steps`` not looped. The
+staged chunks carry each window's real step count to the kernel.
 """
 
 import numpy as np
@@ -28,6 +30,7 @@ from analyzer_tpu.config import RatingConfig as JaxRatingConfig
 from analyzer_tpu.core import fused as jfused
 from analyzer_tpu.core.state import PlayerState as JaxPlayerState
 from analyzer_tpu_torch.config import RatingConfig
+from analyzer_tpu_torch.core.constants import UNSUPPORTED_MODE_ID
 from analyzer_tpu_torch.core.fused import _window_plain, fused_apply_window
 from analyzer_tpu_torch.core.state import PlayerState
 from analyzer_tpu_torch.io.synthetic import synthetic_players, synthetic_stream
@@ -39,6 +42,8 @@ from analyzer_tpu_torch.sched import (
     rate_history,
     rate_window_checked,
 )
+from analyzer_tpu_torch.sched.feed import StagedWindow, stage_fused_windows
+from analyzer_tpu_torch.sched.residency import resolve_fuse
 
 CFG = RatingConfig()
 JCFG = JaxRatingConfig()
@@ -275,3 +280,71 @@ class TestKernelWrapperOnCpu:
         wy = want_ys.numpy()
         np.testing.assert_array_equal(got_ys[..., 1:3], wy[..., 1:3])
         np.testing.assert_allclose(got_ys, wy, rtol=1e-6, atol=1e-6)
+
+    @pytest.mark.parametrize("n_steps", range(1, 17))
+    @pytest.mark.parametrize("seed", [37, 41])
+    def test_host_build_with_inert_tail_matches_plain(self, seed, n_steps):
+        """The window's steps from ``n_steps`` on made inert (slot 0,
+        unsupported mode), as the feed pads a window cut short: the host
+        build loops only the real steps and computes the tail's outputs
+        after them; the plain version loops all 16."""
+        ws, sidx, winner, mode_id, afk = self._window(seed)
+        sidx[n_steps:] = 0
+        winner[n_steps:] = 0
+        mode_id[n_steps:] = UNSUPPORTED_MODE_ID
+        afk[n_steps:] = 0
+        want_ws, want_ys = _window_plain(ws.clone(), sidx, winner, mode_id, afk, CFG, True)
+        for collect in (False, True):
+            got_ws, got_ys = fw.fused_window_host(
+                ws.clone().numpy(), sidx.numpy(), winner.numpy(), mode_id.numpy(),
+                afk.numpy(), CFG, collect, n_steps=n_steps,
+            )
+            # the tolerances of the uncut window above
+            np.testing.assert_allclose(got_ws, want_ws.numpy(), rtol=1e-6, atol=0)
+            np.testing.assert_array_equal(np.isnan(got_ws), np.isnan(want_ws.numpy()))
+        wy = want_ys.numpy()
+        np.testing.assert_array_equal(got_ys[..., 1:3], wy[..., 1:3])
+        np.testing.assert_array_equal(np.isnan(got_ys), np.isnan(wy))
+        np.testing.assert_allclose(got_ys, wy, rtol=1e-6, atol=1e-6)
+
+    def test_wrapper_validates_n_steps_and_cluster(self):
+        ws, sidx, winner, mode_id, afk = self._window()
+        args = (ws, sidx, winner, mode_id, afk, CFG, False)
+        for bad in (-1, 17, 2.0, True, "4"):
+            with pytest.raises(ValueError, match="n_steps"):
+                fw.fused_window(*args, n_steps=bad)
+            with pytest.raises(ValueError, match="n_steps"):
+                fw.fused_window_host(ws.clone().numpy(), sidx.numpy(), winner.numpy(),
+                                     mode_id.numpy(), afk.numpy(), CFG, False,
+                                     n_steps=bad)
+        for bad in (0, 3, 32):
+            with pytest.raises(ValueError, match="cluster"):
+                fw.fused_window(*args, cluster=bad)
+        before = fw.launches
+        for n in (0, 7, 16, np.int64(5)):  # in range: the plain version runs
+            fw.fused_window(ws.clone(), *args[1:], n_steps=n, cluster=16)
+        assert fw.launches == before
+
+
+class TestStagedWindows:
+    def test_staged_chunk_carries_each_plans_real_steps(self):
+        """Windows cut short by the working-set budget carry their real
+        step count; the steps after it are inert padding."""
+        _state, sched, _j, _js = _setup(n_matches=300, n_players=60, seed=53,
+                                        afk_rate=0.2, unsupported_rate=0.1)
+        pidx, _m, winner, mode_id, afk = sched.host_window(0, sched.n_steps)
+        fuse = resolve_fuse("fused", fuse_window=8, fuse_max_rows=64)
+        chunk = stage_fused_windows(pidx, winner, mode_id, afk, sched.pad_row, fuse)
+        valid = (pidx != sched.pad_row) & ((mode_id >= 0) & ~afk)[:, :, None, None]
+        plans = plan_windows(pidx, valid, sched.pad_row, 8, 64)
+        assert [w.n_steps for w in chunk.windows] == [p.n_steps for p in plans]
+        assert any(w.n_steps < 8 for w in chunk.windows)
+        assert chunk.stats["pad_steps"] == sum(8 - w.n_steps for w in chunk.windows)
+        views = chunk.slab.to_device(torch.device("cpu"))
+        for w in chunk.windows:
+            assert isinstance(w, StagedWindow)
+            slot_rows, sidx, win, mode, afk_w = (views[i] for i in w[:5])
+            assert sidx.shape[0] == 8 and slot_rows[0] == sched.pad_row
+            assert (sidx[w.n_steps:] == 0).all()
+            assert (mode[w.n_steps:] == UNSUPPORTED_MODE_ID).all()
+            assert (afk_w[w.n_steps:] == 0).all() and (win[w.n_steps:] == 0).all()

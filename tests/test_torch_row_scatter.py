@@ -3,10 +3,12 @@
 ``experiments/scatter_floor.py::pallas_kernel`` (the Pallas TPU kernel,
 run here in interpret mode on the CPU, with the grid spec of its
 ``make_pallas``) and the harness's ``make_xla`` scan against the port's
-``kernels.row_scatter`` wrapper on CPU tensors (its plain version,
-``index_copy_``) and the port experiment's step loop. A scatter is a copy,
-so every comparison is exact. The wrapper's input checks are tested too;
-the kernel itself needs the card (tests/test_torch_cuda.py).
+``kernels.row_scatter`` wrappers on CPU tensors (their plain version,
+``index_copy_`` per step) — one step (``row_scatter``) and a run of steps
+in order (``row_scatter_steps``, with index sets that repeat across
+steps) — and the port experiment's runs. A scatter is a copy, so every
+comparison is exact. The wrappers' input checks are tested too; the kernel
+itself needs the card (tests/test_torch_cuda.py).
 """
 
 import importlib.util
@@ -92,13 +94,63 @@ def test_xla_scan_equals_port_step_loop(jax_sf, monkeypatch, width):
     assert np.array_equal(np.asarray(j_rows), rows)
     table = np.random.default_rng(6).random((P_SMALL, width)).astype(np.float32)
     want = np.asarray(jax_sf.make_xla()(jnp.asarray(table), j_idx, j_rows))
-    for step, idx_dtype in ((port_sf.scatter_cuda, torch.int32),
-                            (port_sf.scatter_torch, torch.int64)):
-        got = port_sf.run_steps(
-            step, torch.from_numpy(table.copy()),
-            torch.from_numpy(idx).to(idx_dtype), torch.from_numpy(rows),
-        )
+    for run, idx_dtype in (
+        (port_sf.run_cuda, torch.int32),
+        (port_sf.run_torch, torch.int64),
+        (lambda t, i, r: port_sf.run_steps(port_sf.scatter_cuda, t, i, r), torch.int32),
+    ):
+        got = run(torch.from_numpy(table.copy()),
+                  torch.from_numpy(idx).to(idx_dtype), torch.from_numpy(rows))
         assert np.array_equal(got.numpy(), want)
+
+
+def _overlapping_steps(rng, steps, n_rows, width, p=P_SMALL):
+    """``steps`` steps over 3 index sets used in turn, each set sharing a
+    third of its rows with the one before, so the order of the steps
+    decides the result."""
+    perm = rng.permutation(p)
+    shift = n_rows - n_rows // 3
+    sets = [perm[i * shift: i * shift + n_rows] for i in range(3)]
+    idx = np.stack([sets[s % 3] for s in range(steps)]).astype(np.int32)
+    rows = rng.random((steps, n_rows, width)).astype(np.float32)
+    return idx, rows
+
+
+@pytest.mark.parametrize("width", [16, 128])
+def test_row_scatter_steps_equals_xla_scan_and_pallas_steps(jax_sf, monkeypatch, width):
+    """The port's multi-step entry point against the harness's ``make_xla``
+    scan over the same steps, and against the Pallas kernel applied step
+    by step (interpret mode), exactly."""
+    n_rows, steps = 60, 7
+    monkeypatch.setattr(jax_sf, "R", n_rows)
+    rng = np.random.default_rng(width + 1)
+    idx, rows = _overlapping_steps(rng, steps, n_rows, width)
+    table = rng.random((P_SMALL, width)).astype(np.float32)
+    got = rs.row_scatter_steps(torch.from_numpy(table.copy()), torch.from_numpy(idx),
+                               torch.from_numpy(rows), check=True)
+    want = np.asarray(jax_sf.make_xla()(jnp.asarray(table), jnp.asarray(idx),
+                                        jnp.asarray(rows)))
+    assert np.array_equal(got.numpy(), want)
+    pallas = _pallas_scatter(jax_sf, width)
+    t = jnp.asarray(table)
+    for s in range(steps):
+        t = pallas(jnp.asarray(idx[s]), jnp.asarray(rows[s]), t)
+    assert np.array_equal(got.numpy(), np.asarray(t))
+    expect = table.copy()
+    for s in range(steps):
+        expect[idx[s]] = rows[s]
+    assert np.array_equal(got.numpy(), expect)
+
+
+def test_row_scatter_is_the_one_step_case():
+    rng = np.random.default_rng(9)
+    idx, rows = _overlapping_steps(rng, 1, 40, 16)
+    table = rng.random((P_SMALL, 16)).astype(np.float32)
+    one = rs.row_scatter(torch.from_numpy(table.copy()), torch.from_numpy(idx[0]),
+                         torch.from_numpy(rows[0]))
+    steps = rs.row_scatter_steps(torch.from_numpy(table.copy()), torch.from_numpy(idx),
+                                 torch.from_numpy(rows))
+    assert torch.equal(one, steps)
 
 
 def test_make_xs_repeats_every_eight_steps():
@@ -129,6 +181,9 @@ def test_cpu_runs_the_plain_version_uncounted():
     out = rs.row_scatter(table, idx, rows)
     assert out is table and rs.launches == before
     assert torch.equal(table[idx.long()], rows)
+    out = rs.row_scatter_steps(table, idx[None], rows[None] + 1)
+    assert out is table and rs.launches == before
+    assert torch.equal(table[idx.long()], rows + 1)
 
 
 @pytest.mark.parametrize("case", [
@@ -155,6 +210,60 @@ def test_wrapper_refuses_bad_inputs(case):
         rows = torch.zeros((16, 8)).t()
     with pytest.raises(ValueError):
         rs.row_scatter(table, idx, rows)
+
+
+def _steps_args(s=3, p=50, r=8, w=16):
+    rng = np.random.default_rng(2)
+    idx = np.stack([rng.choice(p, r, replace=False) for _ in range(s)]).astype(np.int32)
+    return (torch.zeros((p, w)), torch.from_numpy(idx),
+            torch.from_numpy(rng.random((s, r, w)).astype(np.float32)))
+
+
+@pytest.mark.parametrize("case", [
+    "idx_rank", "idx_dtype", "rows_steps", "rows_rank", "rows_width",
+    "rows_dtype", "width", "contiguity", "device",
+])
+def test_steps_wrapper_refuses_bad_inputs(case):
+    table, idx, rows = _steps_args()
+    match = None
+    if case == "idx_rank":
+        idx = idx[0]
+    elif case == "idx_dtype":
+        idx = idx.long()
+    elif case == "rows_steps":
+        rows = rows[:2]
+    elif case == "rows_rank":
+        rows = rows[0]
+    elif case == "rows_width":
+        rows = rows[..., :8]
+    elif case == "rows_dtype":
+        rows = rows.double()
+    elif case == "width":
+        table, idx, rows = _steps_args(w=6)
+    elif case == "contiguity":
+        rows = rows.transpose(0, 1).contiguous().transpose(0, 1)
+        match = "contiguous"
+    elif case == "device":
+        idx = idx.to("meta")
+        match = "is on"
+    with pytest.raises(ValueError, match=match):
+        rs.row_scatter_steps(table, idx, rows)
+
+
+def test_steps_check_wants_distinct_rows_within_a_step_only():
+    table, idx, rows = _steps_args()
+    idx[2] = idx[0]  # steps may repeat rows ...
+    rs.row_scatter_steps(table, idx, rows, check=True)
+    bad = idx.clone()
+    bad[1, 3] = bad[1, 5]  # ... a step may not
+    with pytest.raises(ValueError, match="distinct within a step"):
+        rs.row_scatter_steps(table, bad, rows, check=True)
+    bad = idx.clone()
+    bad[2, 0] = 50
+    with pytest.raises(ValueError, match="lie in"):
+        rs.row_scatter_steps(table, bad, rows, check=True)
+    empty = rs.row_scatter_steps(table, idx[:0], rows[:0])
+    assert empty is table
 
 
 def test_wrapper_refuses_other_devices():
