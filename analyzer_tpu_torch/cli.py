@@ -1,9 +1,11 @@
-"""Command-line interface of the port: ``python -m analyzer_tpu_torch.cli rate``.
+"""Command-line interface of the port: ``python -m analyzer_tpu_torch.cli
+rate | serve | query``.
 
-Counterpart of the ``rate`` subcommand of ``analyzer_tpu.cli``: the
-TrueSkill full-history re-rate of a match stream file with
-checkpoint/resume, with the JAX package's flags, defaults, error texts
-(exit 2) and JSON stats line. Routing is the JAX package's:
+Counterparts of the same subcommands of ``analyzer_tpu.cli``, with the JAX
+package's flags, defaults, error texts (exit 2) and JSON lines.
+
+``rate`` is the TrueSkill full-history re-rate of a match stream file with
+checkpoint/resume. Routing is the JAX package's:
 
   * no ``--checkpoint`` and no ``--stop-after-steps``: the fully streamed
     path, :func:`~analyzer_tpu_torch.sched.runner.rate_stream` (the
@@ -13,11 +15,20 @@ checkpoint/resume, with the JAX package's flags, defaults, error texts
     snapshot at a ``--stop-after-steps`` bound, and a schedule-fingerprint
     check when ``--resume`` re-enters mid-schedule.
 
-It runs on the card (``--device cuda``, the default) and refuses to start
-where there is none; ``--device cpu`` runs it on the CPU. The JAX flags
-``--db``/``--db-write``, ``--mesh``, ``--hot-rows``, ``--trace``,
+``--hot-rows N`` rates against a tiered table (an N-row hot set on the
+device over a host cold tier; bit-identical results).
+
+``serve --checkpoint ck.npz`` publishes a finished re-rate's table as
+version 1 and answers ``/v1/{ratings,leaderboard,winprob,tiers}`` from the
+device until ``--max-seconds`` passes or it is interrupted; ``query`` is
+one HTTP request against such an endpoint.
+
+``rate`` and ``serve`` run on the card (``--device cuda``, the default) and
+refuse to start where there is none; ``--device cpu`` runs them on the
+CPU. The JAX flags ``--db``/``--db-write``, ``--mesh``, ``--trace``,
 ``--metrics-out``, ``--trace-events`` and ``--obs-port`` are not ported
-yet (ROADMAP A10, A14, A9, A16).
+yet (ROADMAP A10, A14, A16): ``serve --db`` and ``serve --shards N>1``
+exit 2 naming their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -133,6 +144,7 @@ def _rate_streamed(args, cfg, timer, state, stream, cursor, n_players) -> int:
             state, stream.slice(cursor, stream.n_matches), cfg,
             stats_out=stats, prefetch_depth=args.prefetch_depth,
             kernel=args.kernel, fuse_window=args.fuse_window,
+            hot_rows=args.hot_rows,
         )
         _sync(state)
     sched_view = types.SimpleNamespace(
@@ -164,29 +176,39 @@ def _validate_rate(args) -> bool:
         return fail("--checkpoint-every requires --checkpoint")
     if args.fuse_window is not None and args.fuse_window <= 0:
         return fail("--fuse-window must be positive")
+    if args.hot_rows < 0:
+        return fail("--hot-rows must be >= 0 (0 = untiered)")
     if not args.csv:
         return fail("--csv is required")
     return True
 
 
+def _resolve_device(args, verb: str):
+    """The device ``--device`` names, or None after printing why not."""
+    from analyzer_tpu_torch.device import resolve_device
+
+    try:
+        return resolve_device(args.device)
+    except RuntimeError:
+        print(
+            f"error: --device {args.device} asks for the CUDA card, but no "
+            "CUDA device is visible (torch.cuda.is_available() is False); "
+            f"pass --device cpu to {verb} on the CPU", file=sys.stderr,
+        )
+        return None
+
+
 def cmd_rate(args) -> int:
     from analyzer_tpu_torch.config import RatingConfig
     from analyzer_tpu_torch.core.state import PlayerState
-    from analyzer_tpu_torch.device import resolve_device
     from analyzer_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
     from analyzer_tpu_torch.sched import pack_schedule, rate_history
 
     cfg = RatingConfig.from_env()
     if not _validate_rate(args):
         return 2
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError:
-        print(
-            f"error: --device {args.device} asks for the CUDA card, but no "
-            "CUDA device is visible (torch.cuda.is_available() is False); "
-            "pass --device cpu to rate on the CPU", file=sys.stderr,
-        )
+    device = _resolve_device(args, "rate")
+    if device is None:
         return 2
     timer = PhaseTimer()
     with timer.phase("load"):
@@ -240,6 +262,7 @@ def cmd_rate(args) -> int:
                 prefetch_depth=args.prefetch_depth,
                 kernel=args.kernel,
                 fuse_window=args.fuse_window,
+                hot_rows=args.hot_rows,
             )
             _sync(state)
     finally:
@@ -248,6 +271,111 @@ def cmd_rate(args) -> int:
         with timer.phase("checkpoint"):
             save_checkpoint(args.checkpoint, state, cursor=stream.n_matches)
     print(_rate_stats(stream, cursor, n_players, state, sched, timer))
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """ratesrv standalone: publish a checkpoint's rating table as version
+    1 and serve queries against it from the device."""
+    from analyzer_tpu_torch.config import RatingConfig
+    from analyzer_tpu_torch.io.checkpoint import load_checkpoint
+    from analyzer_tpu_torch.serve import QueryEngine, ViewPublisher
+    from analyzer_tpu_torch.serve.server import ServeServer
+
+    args.checkpoint = args.checkpoint or None
+    args.db = args.db or None
+    if (args.checkpoint is None) == (args.db is None):
+        print("error: exactly one of --checkpoint / --db is required",
+              file=sys.stderr)
+        return 2
+    if args.shards < 1:
+        print("error: --shards must be >= 1", file=sys.stderr)
+        return 2
+    if args.db is not None:
+        print("error: serve --db is not ported yet (ROADMAP A10, the service "
+              "shell's SQL store); serve a --checkpoint", file=sys.stderr)
+        return 2
+    if args.shards > 1:
+        print("error: serve --shards > 1 is not ported yet (ROADMAP A11b, "
+              "the sharded plane); use --shards 1", file=sys.stderr)
+        return 2
+    device = _resolve_device(args, "serve")
+    if device is None:
+        return 2
+    cfg = RatingConfig.from_env()
+    publisher = ViewPublisher(device=device)
+    ck = load_checkpoint(args.checkpoint, device=device)
+    # Checkpoints carry no id column: rows serve by index.
+    view = publisher.publish_state(ck.state)
+    engine = QueryEngine(
+        publisher, cfg=cfg, max_batch=args.max_batch, device=device
+    )
+    engine.warmup(view)  # no first-query stall
+    engine.start()
+    server = ServeServer(engine, port=args.port)
+    print(json.dumps({
+        "serving": server.url,
+        "players": view.n_players,
+        "version": view.version,
+        "shards": args.shards,
+        "source": args.checkpoint,
+    }))
+    sys.stdout.flush()
+    try:
+        deadline = (
+            None if args.max_seconds is None
+            else time.monotonic() + args.max_seconds
+        )
+        while deadline is None or time.monotonic() < deadline:
+            time.sleep(0.2)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.close()
+        engine.close()
+    return 0
+
+
+def cmd_query(args) -> int:
+    """One query against a running serve endpoint — the operator's curl
+    with the URL assembly done for them."""
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    params = {}
+    if args.kind == "ratings":
+        if not args.ids:
+            print("error: ratings needs --ids a,b,c", file=sys.stderr)
+            return 2
+        params["ids"] = args.ids
+    elif args.kind == "leaderboard":
+        params["k"] = str(args.k)
+    elif args.kind == "winprob":
+        if not (args.a and args.b):
+            print("error: winprob needs --a ids and --b ids", file=sys.stderr)
+            return 2
+        params["a"] = args.a
+        params["b"] = args.b
+    elif args.kind == "tiers" and args.score is not None:
+        params["score"] = str(args.score)
+    url = (
+        args.url.rstrip("/") + "/v1/" + args.kind
+        + ("?" + urllib.parse.urlencode(params) if params else "")
+    )
+    try:
+        with urllib.request.urlopen(url, timeout=args.timeout) as resp:
+            body = resp.read().decode("utf-8")
+    except urllib.error.HTTPError as err:
+        print(err.read().decode("utf-8"), end="")
+        print(f"error: {url} -> HTTP {err.code}", file=sys.stderr)
+        return 1
+    except (urllib.error.URLError, ValueError) as err:
+        # URLError: nothing listening; ValueError: a malformed --url
+        reason = getattr(err, "reason", err)
+        print(f"error: {url}: {reason}", file=sys.stderr)
+        return 1
+    print(body, end="")
     return 0
 
 
@@ -289,11 +417,79 @@ def build_parser() -> argparse.ArgumentParser:
         "window (a counted spill)",
     )
     s.add_argument(
+        "--hot-rows", type=int, metavar="N",
+        default=int(os.environ.get("BENCH_HOT_ROWS", 0)),
+        help="tiered ratings table (default 0 = untiered): keep only an "
+        "N-row hot set (rounded up to a power of two) of the player table "
+        "in device memory, spilling cold rows to a host tier promoted "
+        "ahead of need on the feed thread; results bit-identical at every "
+        "size (sched/tier.py)",
+    )
+    s.add_argument(
         "--device", default="cuda",
         help="where to rate: cuda (default; refuses to start without a "
         "card) or cpu",
     )
     s.set_defaults(fn=cmd_rate)
+
+    s = sub.add_parser(
+        "serve",
+        help="ratesrv: serve lookups/leaderboards/win-probability over a "
+        "rating table",
+    )
+    s.add_argument("--checkpoint", help="rating-state snapshot (.npz)")
+    s.add_argument(
+        "--db", metavar="URI",
+        help="serve the player table of a reference-schema database (not "
+        "ported yet: ROADMAP A10)",
+    )
+    s.add_argument(
+        "--port", type=int, default=0, metavar="PORT",
+        help="bind port (default 0 = ephemeral; the bound URL prints as "
+        "one JSON line on stdout)",
+    )
+    s.add_argument(
+        "--max-batch", type=int, default=256, metavar="N",
+        help="microbatch coalescing cap per tick (default: 256)",
+    )
+    s.add_argument(
+        "--max-seconds", type=float, metavar="S",
+        help="serve for S seconds then exit (default: forever; smoke "
+        "tests and drills)",
+    )
+    s.add_argument(
+        "--shards", type=int, default=1, metavar="S",
+        help="serve through the sharded plane (not ported yet beyond 1: "
+        "ROADMAP A11b)",
+    )
+    s.add_argument(
+        "--device", default="cuda",
+        help="where the served table lives: cuda (default; refuses to "
+        "start without a card) or cpu",
+    )
+    s.set_defaults(fn=cmd_serve)
+
+    s = sub.add_parser(
+        "query",
+        help="one query against a running serve endpoint",
+    )
+    s.add_argument(
+        "kind", choices=("ratings", "leaderboard", "winprob", "tiers"),
+    )
+    s.add_argument(
+        "--url", required=True, metavar="URL",
+        help="serve endpoint base, e.g. http://127.0.0.1:8391",
+    )
+    s.add_argument("--ids", metavar="A,B,C", help="ratings: player ids")
+    s.add_argument("--k", type=int, default=10, help="leaderboard depth")
+    s.add_argument("--a", metavar="IDS", help="winprob: team A ids")
+    s.add_argument("--b", metavar="IDS", help="winprob: team B ids")
+    s.add_argument(
+        "--score", type=float,
+        help="tiers: also report this conservative score's percentile",
+    )
+    s.add_argument("--timeout", type=float, default=10.0)
+    s.set_defaults(fn=cmd_query)
     return p
 
 

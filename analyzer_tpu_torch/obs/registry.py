@@ -1,0 +1,383 @@
+"""Process-wide metrics registry: counters, gauges, histograms.
+
+The port's own copy of ``analyzer_tpu.obs.registry`` (stdlib only): the
+same instruments, series keys, cardinality cap and snapshot shape, with the
+pre-declared schema cut to the families the port emits — the tiered
+table's ``tier.*`` and the serve plane's ``serve.*`` (integer counters that
+the parity tests hold equal to the JAX package's on the same schedule).
+
+Design constraints, in order:
+
+  * **stdlib only** — the registry is imported by the scheduler and the
+    serve plane and must stay light;
+  * **cheap on the hot path** — a counter add is one lock acquire and one
+    float add; a histogram observation appends to a bounded deterministic
+    reservoir (no RNG, no allocation churn);
+  * **one process-wide instance** — instruments are identified by
+    ``name{label=value,...}`` exactly like Prometheus series, so two call
+    sites asking for the same (name, labels) share one instrument, and a
+    scraper or a ``--metrics-out`` snapshot sees the whole process.
+
+The registry pre-declares the operator-facing schema
+(:data:`STANDARD_COUNTERS` / :data:`STANDARD_GAUGES`) so every snapshot
+carries the full key set even before the first event: a dashboard reading
+``tier.misses_total`` gets 0, not a missing series that is
+indistinguishable from a broken scrape.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+
+
+def _series_key(name: str, labels: dict | None) -> str:
+    if not labels:
+        return name
+    inner = ",".join(f"{k}={labels[k]}" for k in sorted(labels))
+    return f"{name}{{{inner}}}"
+
+
+class Counter:
+    """Monotonic counter. ``rate()`` is anchored at the FIRST sample, not
+    construction — a long-lived process whose counter starts moving late
+    reports the rate over its active window (the Counters.rate bug this
+    replaces measured decaying rates on long-lived workers)."""
+
+    __slots__ = ("_lock", "_value", "_first_at", "_last_at")
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._value = 0.0
+        self._first_at: float | None = None
+        self._last_at: float | None = None
+
+    def add(self, n: float = 1.0) -> None:
+        if n < 0:
+            raise ValueError(f"counter increment must be >= 0, got {n}")
+        now = time.perf_counter()
+        with self._lock:
+            if self._first_at is None:
+                self._first_at = now
+            self._last_at = now
+            self._value += n
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+    def rate(self) -> float:
+        """Events per second over the first-sample -> now window."""
+        with self._lock:
+            if self._first_at is None:
+                return 0.0
+            dt = time.perf_counter() - self._first_at
+            return self._value / dt if dt > 0 else 0.0
+
+
+class Gauge:
+    """Last-write-wins scalar. Values may be bool/int/float/None; the
+    snapshot passes them through, the Prometheus exposition coerces
+    (True -> 1, None -> skipped)."""
+
+    __slots__ = ("_lock", "_value")
+
+    def __init__(self, initial=0) -> None:
+        self._lock = threading.Lock()
+        self._value = initial
+
+    def set(self, value) -> None:
+        with self._lock:
+            self._value = value
+
+    def add(self, n: float = 1.0) -> None:
+        with self._lock:
+            self._value = (self._value or 0) + n
+
+    @property
+    def value(self):
+        with self._lock:
+            return self._value
+
+
+class Histogram:
+    """Streaming distribution with count/sum/min/max and quantiles from a
+    DETERMINISTIC decimating reservoir: every ``stride``-th observation is
+    kept; when the reservoir hits ``max_samples`` it is halved (even
+    indices survive) and the stride doubles. The kept set is an evenly
+    spaced subsample of the stream — quantiles are exact for short runs
+    and an unbiased-in-time sketch for long ones — with no RNG (results
+    are reproducible) and bounded memory."""
+
+    __slots__ = ("_lock", "count", "sum", "min", "max",
+                 "_samples", "_stride", "_skip", "_max_samples")
+
+    def __init__(self, max_samples: int = 512) -> None:
+        self._lock = threading.Lock()
+        self.count = 0
+        self.sum = 0.0
+        self.min: float | None = None
+        self.max: float | None = None
+        self._samples: list[float] = []
+        self._stride = 1
+        self._skip = 0
+        self._max_samples = max_samples
+
+    def observe(self, value: float) -> None:
+        v = float(value)
+        with self._lock:
+            self.count += 1
+            self.sum += v
+            self.min = v if self.min is None else min(self.min, v)
+            self.max = v if self.max is None else max(self.max, v)
+            self._skip += 1
+            if self._skip >= self._stride:
+                self._skip = 0
+                self._samples.append(v)
+                if len(self._samples) >= self._max_samples:
+                    self._samples = self._samples[::2]
+                    self._stride *= 2
+
+    def quantile(self, q: float) -> float | None:
+        with self._lock:
+            if not self._samples:
+                return None
+            s = sorted(self._samples)
+            i = min(len(s) - 1, max(0, round(q * (len(s) - 1))))
+            return s[i]
+
+    def summary(self) -> dict:
+        """JSON-ready: count/sum/mean/min/max + p50/p90/p99."""
+        with self._lock:
+            samples = sorted(self._samples)
+            count, total = self.count, self.sum
+            lo, hi = self.min, self.max
+
+        def pick(q):
+            if not samples:
+                return None
+            return samples[min(len(samples) - 1, max(0, round(q * (len(samples) - 1))))]
+
+        return {
+            "count": count,
+            "sum": round(total, 6),
+            "mean": round(total / count, 6) if count else None,
+            "min": lo,
+            "max": hi,
+            "p50": pick(0.50),
+            "p90": pick(0.90),
+            "p99": pick(0.99),
+        }
+
+
+#: Operator-facing series every snapshot must carry, observed or not.
+STANDARD_COUNTERS = (
+    # The tiered ratings table (sched/tier.py): touched-row hits against
+    # the device hot set vs misses that promoted from the host cold tier,
+    # LRU demotions, the dirty subset written back to the host, and window
+    # splits forced by a hot set smaller than one window's touched rows.
+    # Pre-declared so an untiered run reads 0, not missing.
+    "tier.hits_total",
+    "tier.misses_total",
+    "tier.promotions_total",
+    "tier.demotions_total",
+    "tier.dirty_writebacks_total",
+    "tier.spills_total",
+    # Series the registry REFUSED to create because a label family hit
+    # its cardinality cap (MAX_LABEL_VALUES): the canary for a label
+    # minted from an unbounded value (queue names, player ids).
+    "obs.dropped_series_total",
+    "serve.queries_total",
+    "serve.view_publishes_total",
+    # The query engine's per-version result caches (serve/engine.py).
+    "serve.leaderboard_cache_hits_total",
+    "serve.tier_cache_hits_total",
+    # Host-to-device bytes the publish path moved (the patch-vs-rebuild
+    # pin).
+    "serve.view_publish_bytes_total",
+    # Lineage cutovers and follower adoptions (serve/view.py).
+    "serve.view_cutovers_total",
+    "serve.view_adoptions_total",
+    # Keep-alive connection reuses saved by the pooled HTTP client
+    # (obs/httpd.py PooledHTTPClient).
+    "frontdoor.pool_reuse_total",
+)
+STANDARD_GAUGES = (
+    # The tiered table's two budget gauges: the hot-set capacity in rows
+    # (pow2-bucketed from hot_rows) and the cold tier's committed host
+    # bytes.
+    "tier.hot_rows",
+    "tier.host_bytes",
+    # The serving plane (serve/view.py, serve/engine.py): 0 until the
+    # first publish — a scraper can tell "no read plane" from "broken".
+    "serve.view_version",
+    "serve.view_age_seconds",
+)
+
+#: Histogram families the runtime emits (labeled series like
+#: ``serve.microbatch_occupancy{kind=}`` count as one family).
+STANDARD_HISTOGRAMS = (
+    "serve.microbatch_occupancy",
+)
+
+#: The span name catalog: every runtime-emitted trace-event name.
+SPAN_CATALOG = (
+    # the tiered table's promotion/demotion traffic
+    "tier.promote",
+    "tier.demote",
+)
+
+#: Distinct labeled series allowed per family (base metric name) before
+#: the registry refuses to mint more. An unbounded label value (player
+#: ids, per-request tokens) would otherwise grow the registry — and
+#: every snapshot, scrape and flight dump serializing it — forever.
+MAX_LABEL_VALUES = 256
+
+#: Label KEYS reserved for a fleet collector that merges every scraped
+#: process's series under ``host=<target>``: a process minting its own
+#: ``host=``/``fleet=`` label would collide with the federated view.
+RESERVED_LABELS = ("host", "fleet")
+
+#: Operator-facing help text per schema family — the ``# HELP`` line of
+#: a Prometheus exposition. Families not listed here (runtime-minted,
+#: tests) fall back to a generic line via :func:`schema_help`.
+SCHEMA_HELP = {
+    "tier.hits_total": "touched rows found in the device hot set",
+    "tier.misses_total": "touched rows promoted from the host cold tier",
+    "tier.promotions_total": "cold-to-hot row promotions",
+    "tier.demotions_total": "hot-set LRU demotions",
+    "tier.dirty_writebacks_total": "dirty rows written back to the cold tier",
+    "tier.spills_total": "window cuts forced by an over-budget working set",
+    "tier.hot_rows": "hot-set capacity in table rows",
+    "tier.host_bytes": "cold tier's committed host bytes",
+    "obs.dropped_series_total":
+        "series mints refused by the label-cardinality cap",
+    "serve.queries_total": "queries answered by the serving plane",
+    "serve.view_publishes_total": "ratings-view versions published",
+    "serve.leaderboard_cache_hits_total":
+        "leaderboard answers served from the version-keyed cache",
+    "serve.tier_cache_hits_total":
+        "tier-histogram answers served from the version-keyed cache",
+    "serve.view_publish_bytes_total":
+        "host-to-device bytes moved by view publishes",
+    "serve.view_cutovers_total": "atomic dual-lineage view cutovers",
+    "serve.view_adoptions_total":
+        "leader views adopted by reference into a follower lineage",
+    "serve.view_version": "current served view version",
+    "serve.view_age_seconds": "seconds since the current view published",
+    "frontdoor.pool_reuse_total":
+        "keep-alive connection reuses by the pooled HTTP client",
+    "serve.microbatch_occupancy": "per-tick serve microbatch fill",
+}
+
+
+def schema_help(name: str) -> str:
+    """The ``# HELP`` line body for a series family; a generic pointer
+    at the catalog for names outside :data:`SCHEMA_HELP`."""
+    return SCHEMA_HELP.get(
+        name, f"analyzer_tpu series {name}"
+    )
+
+
+class MetricsRegistry:
+    """get-or-create instrument store keyed by ``name{labels}``.
+
+    Label cardinality is CAPPED per family (:data:`MAX_LABEL_VALUES`
+    distinct labeled series per base name): past the cap, the registry
+    stops minting new series — the overflow traffic lands on one shared
+    unregistered instrument per family (call sites keep working, the
+    snapshot stops growing) and every refused mint counts into
+    ``obs.dropped_series_total``, so the condition is visible instead
+    of an unbounded-memory failure mode."""
+
+    def __init__(
+        self,
+        declare_standard: bool = True,
+        max_label_values: int = MAX_LABEL_VALUES,
+    ) -> None:
+        self._lock = threading.Lock()
+        self._counters: dict[str, Counter] = {}
+        self._gauges: dict[str, Gauge] = {}
+        self._histograms: dict[str, Histogram] = {}
+        self.max_label_values = int(max_label_values)
+        # family name -> count of labeled series minted under it.
+        self._family_counts: dict[str, int] = {}
+        # family name -> the shared post-cap overflow instrument (NOT in
+        # the snapshot dicts — it absorbs writes, it is not a series).
+        self._overflow: dict[str, object] = {}
+        # Created directly (the lock is not re-entrant) and always
+        # present: the drop path below increments it under the lock.
+        self._dropped = self._counters.setdefault(
+            "obs.dropped_series_total", Counter()
+        )
+        if declare_standard:
+            for name in STANDARD_COUNTERS:
+                self.counter(name)
+            for name in STANDARD_GAUGES:
+                self.gauge(name)
+
+    def _get_or_create(self, store: dict, name: str, labels: dict, factory):
+        key = _series_key(name, labels)
+        with self._lock:
+            inst = store.get(key)
+            if inst is None:
+                if labels:
+                    n = self._family_counts.get(name, 0)
+                    if n >= self.max_label_values:
+                        # Cap hit: count the refusal, route the caller to
+                        # the family's shared overflow instrument.
+                        self._dropped.add(1)
+                        okey = f"{factory.__name__}:{name}"
+                        inst = self._overflow.get(okey)
+                        if inst is None:
+                            inst = self._overflow[okey] = factory()
+                        return inst
+                    self._family_counts[name] = n + 1
+                inst = store[key] = factory()
+            return inst
+
+    def counter(self, name: str, **labels) -> Counter:
+        return self._get_or_create(self._counters, name, labels, Counter)
+
+    def gauge(self, name: str, **labels) -> Gauge:
+        return self._get_or_create(self._gauges, name, labels, Gauge)
+
+    def histogram(self, name: str, **labels) -> Histogram:
+        return self._get_or_create(self._histograms, name, labels, Histogram)
+
+    def snapshot(self) -> dict:
+        """JSON-ready view of every series: counter values, gauge values,
+        histogram summaries."""
+        with self._lock:
+            counters = dict(self._counters)
+            gauges = dict(self._gauges)
+            histograms = dict(self._histograms)
+        return {
+            "counters": {k: c.value for k, c in sorted(counters.items())},
+            "gauges": {k: g.value for k, g in sorted(gauges.items())},
+            "histograms": {
+                k: h.summary() for k, h in sorted(histograms.items())
+            },
+        }
+
+
+_registry_lock = threading.Lock()
+_registry: MetricsRegistry | None = None
+
+
+def get_registry() -> MetricsRegistry:
+    """The process-wide registry (created on first use)."""
+    global _registry
+    with _registry_lock:
+        if _registry is None:
+            _registry = MetricsRegistry()
+        return _registry
+
+
+def reset_registry() -> MetricsRegistry:
+    """Replaces the process-wide registry with a fresh one (tests)."""
+    global _registry
+    with _registry_lock:
+        _registry = MetricsRegistry()
+        return _registry

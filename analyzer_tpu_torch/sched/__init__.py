@@ -26,6 +26,7 @@ from analyzer_tpu_torch.sched.residency import (
     resolve_fuse,
 )
 from analyzer_tpu_torch.sched.runner import HistoryOutputs, rate_history, rate_stream
+from analyzer_tpu_torch.sched.tier import TierManager
 
 __all__ = [
     "DeviceFeed",
@@ -36,6 +37,7 @@ __all__ = [
     "PackedSchedule",
     "Prefetcher",
     "ResidencyPlan",
+    "TierManager",
     "WindowedSchedule",
     "assign_batches",
     "assign_supersteps",

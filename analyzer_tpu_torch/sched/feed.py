@@ -218,22 +218,26 @@ class FusedChunk:
     """One chunk staged for the fused window: the slab holding every
     window's (slot_rows, slot_idx, winner, mode_id, afk) parts, a
     :class:`StagedWindow` per window, the padded slot->match rows for
-    collect reordering (``flat``, or None), and the chunk's planner
-    totals."""
+    collect reordering (``flat``, or None), the chunk's planner totals,
+    and — on a tiered run — one ``TierPlan`` per window (``tier_plans``),
+    since the fused working-set gather then reads through the hot set."""
 
-    __slots__ = ("slab", "windows", "flat", "stats")
+    __slots__ = ("slab", "windows", "flat", "stats", "tier_plans")
 
-    def __init__(self, slab, windows, flat, stats):
+    def __init__(self, slab, windows, flat, stats, tier_plans=None):
         self.slab = slab
         self.windows = windows
         self.flat = flat
         self.stats = stats
+        self.tier_plans = tier_plans
 
 
 def stage_chunk_fused(sched, start: int, stop: int, fuse, collect: bool,
-                      pin: bool) -> FusedChunk:
+                      pin: bool, tier=None) -> FusedChunk:
     """Fused sibling of :func:`stage_chunk`: materializes the chunk and
-    residency-plans it into fused windows (:func:`stage_fused_windows`)."""
+    residency-plans it into fused windows (:func:`stage_fused_windows`).
+    ``tier`` (a ``sched.tier.TierManager``) remaps each window into
+    hot-slot space and attaches its promotion/demotion plan."""
     check = getattr(sched, "check_compact_invariant", None)
     if check is not None:
         check(start, stop)
@@ -241,6 +245,7 @@ def stage_chunk_fused(sched, start: int, stop: int, fuse, collect: bool,
     return stage_fused_windows(
         pidx, winner, mode_id, afk, sched.pad_row, fuse,
         match_idx=sched.match_idx[start:stop] if collect else None, pin=pin,
+        tier=tier,
     )
 
 
@@ -255,24 +260,37 @@ def _pad_window_steps(arr, k: int, fill):
 
 def stage_fused_windows(
     pidx, winner, mode_id, afk, pad_row: int, fuse, match_idx=None,
-    pin: bool = False,
+    pin: bool = False, tier=None,
 ) -> FusedChunk:
     """Residency plans for a chunk, each window padded to the static window
     size with inert steps (slot 0, unsupported mode: they read and write
     only the pristine pad slot), packed into one slab. ``match_idx`` (when
-    collecting) yields the padded slot->match rows, -1 on inert steps."""
+    collecting) yields the padded slot->match rows, -1 on inert steps.
+    ``tier`` composes the hot set: each window's ``slot_rows`` are remapped
+    into hot slots (the fused gather then reads through the hot set) and
+    its ``TierPlan`` rides along, its promotions packed into the same slab
+    — the runner caps the fused ``max_rows`` at the hot capacity, so every
+    fused window fits by construction."""
     ratable = (mode_id >= 0) & ~afk
     valid = (pidx != pad_row) & ratable[:, :, None, None]
     plans = plan_windows(pidx, valid, pad_row, fuse.window, fuse.max_rows)
     slab = Slab()
     windows = []
+    tier_plans = [] if tier is not None else None
     flat_parts = [] if match_idx is not None else None
     k = fuse.window
     s0 = 0
     for plan in plans:
         s1 = s0 + plan.n_steps
+        slot_rows = plan.slot_rows
+        if tier is not None:
+            tplan, slot_rows = tier.plan_fused(
+                plan.slot_rows, plan.n_live, pidx[s0:s1], valid[s0:s1]
+            )
+            tplan.pack(slab)
+            tier_plans.append(tplan)
         windows.append(StagedWindow(
-            slab.add(plan.slot_rows),
+            slab.add(slot_rows),
             slab.add(_pad_window_steps(plan.slot_idx, k, 0)),
             slab.add(_pad_window_steps(winner[s0:s1], k, 0)),
             slab.add(_pad_window_steps(
@@ -296,4 +314,5 @@ def stage_fused_windows(
         windows,
         np.concatenate(flat_parts) if flat_parts else None,
         stats,
+        tier_plans,
     )

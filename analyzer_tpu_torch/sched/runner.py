@@ -13,6 +13,11 @@ dispatched by the consumer loop both share (:func:`_consume`):
     gather, one fused window (the hand-written CUDA kernel on the card,
     its plain version on a CPU table) and one writeback.
 
+With ``hot_rows`` either kernel runs against the hot set of a tiered table
+(:mod:`analyzer_tpu_torch.sched.tier`), and with ``view_publisher`` the
+table is published as versioned serve views at chunk boundaries
+(:mod:`analyzer_tpu_torch.serve.view`).
+
 The table is updated IN PLACE on one copy of the caller's state, made at
 entry (the JAX package donates its buffer chunk to chunk instead). Per-match
 outputs, when collected, come back one chunk behind the dispatch, so the
@@ -42,6 +47,7 @@ from analyzer_tpu_torch.sched.feed import (
     stage_window,
 )
 from analyzer_tpu_torch.sched.residency import resolve_fuse
+from analyzer_tpu_torch.sched.tier import TierManager, stage_chunk_tiered
 from analyzer_tpu_torch.sched.superstep import (
     assign_batches,
     choose_batch_size_streamed,
@@ -80,13 +86,19 @@ def _reference_chunk_(table, pad_row, views, cfg, collect):
     return torch.stack(ys) if collect else None
 
 
-def _dispatch_fused_chunk(table, staged, views, cfg, collect, backend):
+def _dispatch_fused_chunk(table, staged, views, cfg, collect, backend,
+                          tier=None):
     """Every residency window of a staged chunk, in order, in place on
     ``table``. Returns the chunk's ``[n_windows * K, B, 3 + 10T]`` packed
     outputs when collecting — the reference chunk's layout plus inert
-    padded steps, which ``staged.flat`` maps to -1."""
+    padded steps, which ``staged.flat`` maps to -1. On a tiered run each
+    window's ``TierPlan`` (promotions in, dirty demotions out) executes
+    against the hot table right before its window."""
     ys_parts = []
-    for win in staged.windows:
+    plans = staged.tier_plans or (None,) * len(staged.windows)
+    for win, tplan in zip(staged.windows, plans):
+        if tplan is not None:
+            tier.apply(table, tplan, views)
         slot_rows, slot_idx, winner, mode_id, afk = (views[i] for i in win[:5])
         _, ys = fused_window_table(
             table, slot_rows, slot_idx, winner, mode_id, afk,
@@ -159,18 +171,38 @@ def rate_history(
     after the run: windows dispatched, spills, inert pad steps, scatter
     rows avoided, and the working-set high-water mark.
 
-    ``view_publisher`` (the serve plane, ROADMAP A11) and ``hot_rows`` (the
-    tiered table, ROADMAP A9) are not ported yet and raise
-    NotImplementedError unless left at their defaults."""
-    _refuse_unported(view_publisher, hot_rows)
+    ``hot_rows`` > 0 runs TIERED (:mod:`analyzer_tpu_torch.sched.tier`):
+    only a ``hot_rows``-slot hot set (rounded up to a power of two) of the
+    player table is device-resident; the rest lives in a host cold tier,
+    promoted ahead of the window that needs it on the feed thread and
+    LRU-demoted with dirty rows written back one batch per window. Results
+    are bit-identical to the untiered run at every hot-set size; 0 (the
+    default) leaves the untiered paths untouched. Composes with
+    ``kernel="fused"`` (the working-set gather reads through the hot set)
+    and with ``view_publisher``; the ``on_chunk`` hook then receives the
+    logical full state.
+
+    ``view_publisher`` (a :class:`analyzer_tpu_torch.serve.view.
+    ViewPublisher`) makes a long re-rate servable while it runs: a
+    throttled snapshot of the table publishes at chunk boundaries (rows
+    addressed by index) plus one unthrottled publish of the final state.
+    Untiered, each publish copies the whole table; tiered, the rows written
+    since the last publish ride the publisher's patch path."""
     fuse = resolve_fuse(kernel, fuse_window, fuse_max_rows, fuse_backend)
+    if hot_rows < 0:
+        raise ValueError(f"hot_rows must be >= 0, got {hot_rows}")
     check_seed_cfg(state, cfg)
+    tier = TierManager(state, hot_rows) if hot_rows else None
+    if tier is not None and fuse is not None:
+        fuse = tier.clamp_fuse(fuse)
     n_steps = sched.n_steps if stop_after is None else min(stop_after, sched.n_steps)
     if steps_per_chunk is None:
         # About 8 chunks, so host staging overlaps the device; the floor
         # keeps per-chunk overhead amortized, the ceiling bounds the slabs.
         steps_per_chunk = min(8192, max(256, -(-sched.n_steps // 8)))
-    state = state.clone()
+    # Tiered: the runners only ever see the hot table; the caller's full
+    # state became the cold tier (one fetch at entry).
+    state = tier.hot_state() if tier is not None else state.clone()
     pin = state.table.is_cuda
     starts = list(range(start_step, n_steps, steps_per_chunk))
 
@@ -180,17 +212,19 @@ def rate_history(
             try:
                 if fuse is not None:
                     item = stage_chunk_fused(
-                        sched, start, stop, fuse, collect, pin
+                        sched, start, stop, fuse, collect, pin, tier=tier
                     )
+                elif tier is not None:
+                    item = stage_chunk_tiered(sched, start, stop, tier, collect)
                 else:
                     item = stage_chunk(sched, start, stop, pin)
             except Exception as e:
                 raise FeedStageError(start, stop) from e
             put((start, stop, item))
 
-    outs, fused_flat, totals = _consume(
+    state, outs, fused_flat, totals = _consume(
         produce, state, sched.pad_row, cfg, fuse, collect, on_chunk,
-        prefetch_depth,
+        prefetch_depth, tier, view_publisher,
     )
     if stats_out is not None and fuse is not None:
         stats_out.update(totals)
@@ -205,26 +239,19 @@ def rate_history(
     )
 
 
-def _refuse_unported(view_publisher, hot_rows: int) -> None:
-    if view_publisher is not None:
-        raise NotImplementedError(
-            "view_publisher is not ported yet (ROADMAP A11, serve plane)"
-        )
-    if hot_rows != 0:
-        raise NotImplementedError(
-            "hot_rows (the tiered table) is not ported yet (ROADMAP A9)"
-        )
-
-
 def _flat(fused_flat: list) -> np.ndarray:
     return (np.concatenate(fused_flat).reshape(-1) if fused_flat
             else np.empty(0, np.int32))
 
 
-def _consume(produce, state, pad_row, cfg, fuse, collect, on_chunk, depth):
+def _consume(produce, state, pad_row, cfg, fuse, collect, on_chunk, depth,
+             tier=None, view_publisher=None):
     """The consumer loop of both runners: dispatches every chunk that
     ``produce`` stages (on the Prefetcher's thread), in place on
-    ``state.table``. Returns ``(outs, fused_flat, totals)``: the chunks'
+    ``state.table`` — the hot table when ``tier`` is given — and publishes
+    through ``view_publisher`` at chunk boundaries (throttled) and at the
+    end (always). Returns ``(state, outs, fused_flat, totals)``: the final
+    state (tiered: the logical full table, reconstructed), the chunks'
     packed outputs when collecting, the fused path's padded slot->match
     rows (fused + collect, else None) and its planner totals."""
     table = state.table
@@ -242,7 +269,7 @@ def _consume(produce, state, pad_row, cfg, fuse, collect, on_chunk, depth):
             if fuse is not None:
                 views = staged.slab.to_device(device)
                 ys = _dispatch_fused_chunk(
-                    table, staged, views, cfg, collect, fuse.backend
+                    table, staged, views, cfg, collect, fuse.backend, tier
                 )
                 if fused_flat is not None:
                     fused_flat.append(staged.flat)
@@ -250,6 +277,9 @@ def _consume(produce, state, pad_row, cfg, fuse, collect, on_chunk, depth):
                     totals[key] = (max(totals[key], val)
                                    if key == "working_set_rows"
                                    else totals[key] + val)
+            elif tier is not None:
+                views = staged.slab.to_device(device)
+                ys = tier.dispatch_chunk(table, staged, views, cfg, collect)
             else:
                 views = staged.to_device(device)
                 ys = _reference_chunk_(table, pad_row, views, cfg, collect)
@@ -260,10 +290,32 @@ def _consume(produce, state, pad_row, cfg, fuse, collect, on_chunk, depth):
                     outs.append(pending.result())
                 pending = fetch
             if on_chunk is not None:
-                on_chunk(state, stop)
+                # Tiered: the hook gets the logical full state (cold tier
+                # + resident written rows).
+                on_chunk(
+                    tier.full_state(table) if tier is not None else state,
+                    stop,
+                )
+            if view_publisher is not None:
+                # Throttled, and BEFORE the next chunk updates the table in
+                # place: the publisher takes its own copy here or not at
+                # all.
+                if tier is not None:
+                    tier.maybe_publish_view(view_publisher, table)
+                else:
+                    view_publisher.maybe_publish_state(state)
+    if view_publisher is not None:  # the final table, unthrottled
+        if tier is not None:
+            tier.publish_view(view_publisher, table)
+        else:
+            view_publisher.publish_state(state)
+    if tier is not None:
+        # The drained cold tier plus every resident row written since
+        # entry: bit-identical to the untiered runner's final table.
+        state = tier.finish(table)
     if pending is not None:
         outs.append(pending.result())
-    return outs, fused_flat, totals
+    return state, outs, fused_flat, totals
 
 
 def rate_stream(
@@ -326,14 +378,24 @@ def rate_stream(
     of :func:`rate_history`). ``on_chunk(state, next_step)`` fires after
     each dispatched chunk, as in :func:`rate_history`.
 
-    ``mesh`` (ROADMAP A14), ``hot_rows`` (A9) and ``view_publisher`` (A11)
-    are not ported yet and raise NotImplementedError unless left at their
-    defaults."""
+    ``hot_rows`` and ``view_publisher`` mirror :func:`rate_history`: the
+    cold rows are promoted on this same feed thread ahead of the window
+    that needs them, and views publish at window boundaries plus the final
+    table. ``mesh`` (ROADMAP A14) is not ported yet and raises
+    NotImplementedError unless left at None (with ``hot_rows`` it is the
+    JAX package's ValueError: the two do not compose there either)."""
+    if hot_rows < 0:
+        raise ValueError(f"hot_rows must be >= 0, got {hot_rows}")
     if mesh is not None:
+        if hot_rows:
+            raise ValueError(
+                "hot_rows > 0 is not supported with mesh= (each shard "
+                "tiering its slice independently is the ROADMAP item 2 "
+                "composition); drop mesh= or hot_rows"
+            )
         raise NotImplementedError(
             "mesh= is not ported yet (ROADMAP A14, parallel)"
         )
-    _refuse_unported(view_publisher, hot_rows)
     n = stream.n_matches
     team = team_size or max(MAX_TEAM_SIZE, stream.team_size)
     if stream.team_size > team:
@@ -342,13 +404,18 @@ def rate_stream(
         )
     fuse = resolve_fuse(kernel, fuse_window, fuse_max_rows, fuse_backend)
     check_seed_cfg(state, cfg)
-    state = state.clone()
     pad_row = state.pad_row
+    tier = TierManager(state, hot_rows) if hot_rows else None
+    if tier is not None and fuse is not None:
+        fuse = tier.clamp_fuse(fuse)
+    state = tier.hot_state() if tier is not None else state.clone()
     if n == 0:
         if stats_out is not None:
             stats_out.update(
                 n_steps=0, batch_size=0, occupancy=0.0, choose_batch_size_s=0.0
             )
+        if tier is not None:
+            state = tier.finish(state.table)
         return state, (_gather_outputs([], np.empty(0, np.int32), 0, team)
                        if collect else None)
     if int(stream.player_idx.max()) >= pad_row:
@@ -362,10 +429,11 @@ def rate_stream(
     feed = _StreamFeed(
         stream, b, steps_per_chunk or min(8192, max(256, -(-n // b) // 8 or 1)),
         team, pad_row, fuse, collect, state.table.is_cuda, poll_interval,
+        tier,
     )
-    outs, fused_flat, totals = _consume(
+    state, outs, fused_flat, totals = _consume(
         feed.produce, state, pad_row, cfg, fuse, collect, on_chunk,
-        prefetch_depth,
+        prefetch_depth, tier, view_publisher,
     )
     if stats_out is not None:
         stats_out.update(
@@ -390,8 +458,9 @@ class _StreamFeed:
     SENTINEL = np.iinfo(np.int64).min
 
     def __init__(self, stream, b, spc, team, pad_row, fuse, collect, pin,
-                 poll_interval):
+                 poll_interval, tier=None):
         n = stream.n_matches
+        self.tier = tier
         self.stream, self.b, self.spc, self.team = stream, b, spc, team
         self.pad_row, self.fuse, self.collect, self.pin = pad_row, fuse, collect, pin
         self.poll_interval = poll_interval
@@ -485,7 +554,10 @@ class _StreamFeed:
             return stage_fused_windows(
                 pidx, winner, mode_id, afk, self.pad_row, self.fuse,
                 match_idx=mi if self.collect else None, pin=self.pin,
+                tier=self.tier,
             )
+        if self.tier is not None:
+            return self.tier.stage_windows(pidx, winner, mode_id, afk)
         return stage_window(pidx, winner, mode_id, afk, self.pin)
 
     def _emit(self, put, e1: int) -> None:

@@ -1,5 +1,5 @@
-"""The port's stream files, checkpoints and ``rate`` command line against
-the JAX package's.
+"""The port's stream files, checkpoints and command line (``rate``,
+``serve``, ``query``) against the JAX package's.
 
 Exact: stream files (CSV bytes and the arrays either package reads from
 either package's files), checkpoint layout and cursors, the CLI's flag
@@ -8,6 +8,11 @@ checks (exit 2, the same messages), the integer stats (``players_rated``,
 against a one-shot run, bit for bit. ``mean_mu`` and tables that mix the
 two packages' arithmetic carry the float tolerance of
 tests/test_torch_fused.py (tests/test_torch_ops.py says why).
+
+``rate --hot-rows`` (the tiered table) equals the untiered run bit for bit
+and the JAX package's integer stats; a checkpoint written by either
+package serves through ``cli serve`` of the other, and ``cli query`` bodies
+equal the in-process engine's answers exactly.
 """
 
 import json
@@ -262,6 +267,7 @@ class TestRate:
         ("--stop-after-steps", "-1"),
         ("--prefetch-depth", "0"),
         ("--fuse-window", "0"),
+        ("--hot-rows", "-1"),
     ])
     def test_flag_errors_match_jax(self, tmp_path, capsys, argv):
         csv = _write(tmp_path, n=10, p=12)
@@ -289,3 +295,193 @@ class TestRate:
         )
         assert proc.returncode == 2
         assert "CUDA" in proc.stderr and '"players_rated"' not in proc.stdout
+
+
+class TestHotRows:
+    @pytest.mark.parametrize("extra", [(), ("--checkpoint", "ck.npz")],
+                             ids=["streamed", "packed"])
+    @pytest.mark.parametrize("kernel", ["reference", "fused"])
+    def test_tiered_rate_equals_untiered_and_jax_stats(self, tmp_path, capsys,
+                                                       extra, kernel):
+        csv = _write(tmp_path, n=400, p=80, seed=4)
+        extra = tuple(str(tmp_path / a) if a.endswith(".npz") else a for a in extra)
+        base = _run(capsys, "rate", "--csv", csv, "--kernel", kernel, *extra)
+        if extra:
+            want = ck.load_checkpoint(extra[1], device="cpu").state.table.numpy().copy()
+        tiered = _run(capsys, "rate", "--csv", csv, "--kernel", kernel,
+                      "--hot-rows", "64", *extra)
+        theirs = _run_jax(capsys, "rate", "--csv", csv, "--kernel", kernel,
+                          "--hot-rows", "64", *extra)
+        for key in ("matches", "players_rated", "mean_mu", "supersteps", "occupancy"):
+            assert tiered[key] == base[key], key
+        for key in ("matches", "players_rated", "supersteps", "occupancy"):
+            assert tiered[key] == theirs[key], key
+        assert set(tiered) == set(theirs)
+        if extra:
+            # the JAX run overwrote the file: compare against the port's
+            # untiered table through a fresh tiered run
+            _run(capsys, "rate", "--csv", csv, "--kernel", kernel,
+                 "--hot-rows", "64", *extra)
+            got = ck.load_checkpoint(extra[1], device="cpu").state.table.numpy()
+            assert np.array_equal(got, want, equal_nan=True)
+
+    def test_tiered_kill_and_resume(self, tmp_path, capsys):
+        csv = _write(tmp_path, n=400, p=80, seed=5)
+        a, b = str(tmp_path / "a.npz"), str(tmp_path / "b.npz")
+        _run(capsys, "rate", "--csv", csv, "--checkpoint", a, "--hot-rows", "64",
+             "--checkpoint-every", "3", "--stop-after-steps", "6")
+        _run(capsys, "rate", "--csv", csv, "--checkpoint", a, "--hot-rows", "128",
+             "--resume")
+        _run(capsys, "rate", "--csv", csv, "--checkpoint", b)
+        assert np.array_equal(
+            ck.load_checkpoint(a, device="cpu").state.table.numpy(),
+            ck.load_checkpoint(b, device="cpu").state.table.numpy(), equal_nan=True)
+
+    def test_env_default(self, tmp_path, capsys, monkeypatch):
+        from analyzer_tpu_torch.cli import build_parser
+
+        monkeypatch.setenv("BENCH_HOT_ROWS", "256")
+        assert build_parser().parse_args(["rate", "--csv", "x"]).hot_rows == 256
+        monkeypatch.delenv("BENCH_HOT_ROWS")
+        assert build_parser().parse_args(["rate", "--csv", "x"]).hot_rows == 0
+
+
+def _serve_process(module: str, *argv):
+    """``python -m <module> serve ...`` as a subprocess; returns it with the
+    JSON line it printed once it was serving."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", module, "serve", *argv, "--port", "0",
+         "--max-seconds", "120"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=_REPO,
+    )
+    line = ""
+    while not line.startswith('{"serving"'):
+        line = proc.stdout.readline()
+        if not line:
+            raise AssertionError(f"serve exited {proc.wait()}: {proc.stderr.read()}")
+    return proc, json.loads(line)
+
+
+def _stop(proc):
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    finally:
+        proc.kill()
+        proc.stdout.close()
+        proc.stderr.close()
+
+
+_QUERIES = [
+    ("leaderboard", "--k", "7"),
+    ("ratings", "--ids", "1,2,3,999,x"),
+    ("winprob", "--a", "1,2", "--b", "3,4,5"),
+    ("tiers",),
+    ("tiers", "--score", "-250.5"),
+]
+
+
+def _answers(engine) -> list:
+    pct = engine.percentile(-250.5)
+    tiers = engine.tier_histogram()
+    return [
+        engine.leaderboard(7),
+        engine.get_ratings(["1", "2", "3", "999", "x"]),
+        engine.win_probability(["1", "2"], ["3", "4", "5"]),
+        tiers,
+        {**tiers, "percentile": pct["percentile"], "score": pct["score"],
+         "below": pct["below"]},
+    ]
+
+
+class TestServeAndQuery:
+    def _query(self, capsys, url, *argv, rc=0):
+        capsys.readouterr()
+        assert main(["query", *argv, "--url", url]) == rc
+        return capsys.readouterr()
+
+    def test_round_trip_on_a_jax_checkpoint(self, tmp_path, capsys):
+        """``cli rate --checkpoint`` of the JAX package -> the port's ``cli
+        serve --device cpu`` -> ``cli query``: every body equals the JAX
+        engine's answer on the same checkpoint."""
+        from analyzer_tpu.serve import QueryEngine as JaxEngine
+        from analyzer_tpu.serve import ViewPublisher as JaxPublisher
+
+        csv = _write(tmp_path, n=400, p=80, seed=6)
+        path = str(tmp_path / "jax.npz")
+        _run_jax(capsys, "rate", "--csv", csv, "--checkpoint", path)
+        pub = JaxPublisher()
+        pub.publish_state(jck.load_checkpoint(path).state)
+        want = _answers(JaxEngine(pub, cfg=JaxRatingConfig.from_env()))
+        proc, info = _serve_process("analyzer_tpu_torch.cli", "--checkpoint", path,
+                                    "--device", "cpu")
+        try:
+            assert info == {"serving": info["serving"], "players": 80, "version": 1,
+                            "shards": 1, "source": path}
+            for argv, expect in zip(_QUERIES, want):
+                out = self._query(capsys, info["serving"], *argv)
+                assert json.loads(out.out) == expect, argv
+            bad = self._query(capsys, info["serving"], "winprob", "--a", "1",
+                              "--b", "nobody", rc=1)
+            assert json.loads(bad.out) == {"error": "unknown player id(s): nobody"}
+            assert "HTTP 404" in bad.err
+            bad = self._query(capsys, info["serving"], "leaderboard", "--k", "0", rc=1)
+            assert "HTTP 400" in bad.err
+        finally:
+            _stop(proc)
+
+    def test_port_checkpoint_serves_from_the_jax_package(self, tmp_path, capsys):
+        """The other way: the port's checkpoint through the JAX package's
+        ``cli serve``, queried by the port's ``cli query``; bodies equal
+        the port engine's answers."""
+        from analyzer_tpu_torch.config import RatingConfig
+        from analyzer_tpu_torch.serve import QueryEngine, ViewPublisher
+
+        csv = _write(tmp_path, n=400, p=80, seed=7)
+        path = str(tmp_path / "port.npz")
+        _run(capsys, "rate", "--csv", csv, "--checkpoint", path, "--hot-rows", "64")
+        pub = ViewPublisher(device="cpu")
+        pub.publish_state(ck.load_checkpoint(path, device="cpu").state)
+        want = _answers(QueryEngine(pub, cfg=RatingConfig.from_env(), device="cpu"))
+        proc, info = _serve_process("analyzer_tpu.cli", "--checkpoint", path)
+        try:
+            assert info["players"] == 80
+            for argv, expect in zip(_QUERIES, want):
+                out = self._query(capsys, info["serving"], *argv)
+                assert json.loads(out.out) == expect, argv
+        finally:
+            _stop(proc)
+
+    def test_query_flag_errors_and_dead_endpoint(self, capsys):
+        url = "http://127.0.0.1:9"
+        assert main(["query", "ratings", "--url", url]) == 2
+        assert "ratings needs --ids" in capsys.readouterr().err
+        assert main(["query", "winprob", "--a", "1", "--url", url]) == 2
+        assert "winprob needs --a ids and --b ids" in capsys.readouterr().err
+        assert main(["query", "tiers", "--url", url, "--timeout", "2"]) == 1
+        assert capsys.readouterr().err.startswith("error: http://127.0.0.1:9/v1/tiers")
+
+    @pytest.mark.parametrize("argv,text", [
+        ((), "exactly one of --checkpoint / --db is required"),
+        (("--checkpoint", "a.npz", "--db", "sqlite:///x.db"),
+         "exactly one of --checkpoint / --db is required"),
+        (("--checkpoint", "a.npz", "--shards", "0"), "--shards must be >= 1"),
+        (("--db", "sqlite:///x.db"), "ROADMAP A10"),
+        (("--checkpoint", "a.npz", "--shards", "2"), "ROADMAP A11b"),
+    ])
+    def test_serve_refusals(self, capsys, argv, text):
+        assert main(["serve", *argv, "--device", "cpu"]) == 2
+        captured = capsys.readouterr()
+        assert text in captured.err and captured.out == ""
+
+    def test_serve_without_a_card_is_refused(self, tmp_path, capsys):
+        import torch
+
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA device is visible: the default serves from it")
+        csv = _write(tmp_path, n=10, p=12)
+        path = str(tmp_path / "ck.npz")
+        _run(capsys, "rate", "--csv", csv, "--checkpoint", path)
+        assert main(["serve", "--checkpoint", path]) == 2
+        captured = capsys.readouterr()
+        assert "CUDA" in captured.err and "serving" not in captured.out

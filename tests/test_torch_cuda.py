@@ -4,7 +4,10 @@ real and random windows — team sizes, batch sizes that are not a multiple
 of the cluster or exceed its lanes, collect on and off, an inert tail — its
 launch counter, and the fused path against the reference path on the card;
 the row scatter, one step and a multi-step run in one launch, held against
-``index_copy_``, bit for bit. Every test needs a CUDA device (marker
+``index_copy_``, bit for bit; the tiered table on the card (paging through
+pinned memory, a demotion's copy waited on before the cold tier is
+written) and the query engine on the card against its oracle. Every test
+needs a CUDA device (marker
 ``cuda``) and skips with a reason without one. On the card, where JAX is
 not installed, run them without the suite's conftest:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``."""
@@ -233,3 +236,191 @@ def test_row_scatter_steps_is_one_launch_equal_to_index_copy_loop(cuda, width, s
     with pytest.raises(ValueError, match="resident"):
         rs.row_scatter_steps(table.clone(), idx, rows, grid_blocks=cap + 1)
     assert rs.launches == before + 2
+
+
+# -- the tiered table and the serve plane on the card -------------------------
+
+
+def _assert_same_run(got, want):
+    (g_state, g_out), (w_state, w_out) = got, want
+    assert np.array_equal(g_state.table.cpu().numpy(), w_state.table.cpu().numpy(),
+                          equal_nan=True)
+    for f in ("quality", "shared_mu", "shared_sigma", "delta", "mode_mu",
+              "mode_sigma", "any_afk", "updated"):
+        assert np.array_equal(getattr(g_out, f), getattr(w_out, f), equal_nan=True), f
+
+
+@pytest.mark.parametrize("kernel", ["reference", "fused"])
+@pytest.mark.parametrize("hot_rows", [700, 2048])
+def test_tiered_run_on_cuda_is_bit_identical(cuda, kernel, hot_rows):
+    """A hot set of 1024 slots (from 700) thrashes under chunks that touch
+    every one of the 300 players many times over B=64 x 10 slots a step —
+    demotions stream through pinned memory while later windows run — and
+    one of 2048 holds everything; both must equal the untiered run."""
+    from analyzer_tpu_torch.obs import get_registry, reset_registry
+
+    players = synthetic_players(3000, seed=11)
+    stream = synthetic_stream(6000, players, seed=11, afk_rate=0.1,
+                              unsupported_rate=0.05)
+    state = PlayerState.create(3000, players.rank_points_ranked,
+                               players.rank_points_blitz, players.skill_tier,
+                               device=cuda)
+    sched = pack_schedule(stream, pad_row=3000, batch_size=64)
+    want = rate_history(state, sched, CFG, collect=True, kernel=kernel,
+                        steps_per_chunk=8)
+    reset_registry()
+    got = rate_history(state, sched, CFG, collect=True, kernel=kernel,
+                       steps_per_chunk=8, hot_rows=hot_rows, prefetch_depth=3)
+    _assert_same_run(got, want)
+    counters = get_registry().snapshot()["counters"]
+    if hot_rows < 3000:
+        assert counters["tier.dirty_writebacks_total"] > 0
+    else:
+        assert counters["tier.demotions_total"] == 0
+
+
+def test_tier_demotion_lands_only_after_its_copy(cuda):
+    """The writeback of a dirty eviction is an asynchronous copy into pinned
+    memory. Behind a long queue of device work it has not landed when
+    ``apply`` returns: until its event completes, the cold tier keeps the
+    old row and ``applied`` stays behind the plan, so the producer cannot
+    stage that row as fresh; after the drain the cold tier holds the
+    device's value."""
+    from analyzer_tpu_torch.sched.tier import TierManager
+
+    state = PlayerState.create(64, device=cuda)
+    tier = TierManager(state, 8)
+    table = tier.hot_state().table
+    first = np.arange(8, dtype=np.int32)
+    tier.apply(table, tier.plan_rows(first, first))
+    table[:8, 0] = torch.arange(100.0, 108.0, device=cuda)  # the "update"
+    old = tier._host_table[:8, 0].copy()
+    big = torch.randn(8192, 8192, device=cuda)
+    for _ in range(40):  # a few hundred ms of queued work ahead of the copy
+        big = big @ big * 1e-4
+    nxt = np.arange(8, 16, dtype=np.int32)
+    plan = tier.plan_rows(nxt, nxt)
+    assert plan.wb_rows.size == 8 and plan.evict_rows.size == 8
+    tier.apply(table, plan)
+    pending_before = len(tier._pending)
+    tier._drain(wait=False)  # polls: must not write what has not landed
+    if tier._pending:
+        assert np.array_equal(tier._host_table[:8, 0], old, equal_nan=True)
+        later = tier.plan_rows(first, first)  # rows 0..7 come back
+        assert later.deferred_rows.size == 8 and later.fresh_slots.size == 0
+        tier.apply(table, later)  # a deferred promotion drains first
+    else:
+        later = None
+    tier._drain()
+    assert pending_before == 1 and not tier._pending
+    assert np.array_equal(tier._host_table[:8, 0], np.arange(100.0, 108.0, dtype=np.float32))
+    if later is not None:
+        slots = torch.from_numpy(later.promote_slots).to(cuda).long()
+        assert torch.equal(table[slots, 0], torch.arange(100.0, 108.0, device=cuda))
+
+
+def _serve_table(rng, p):
+    t = np.full((p + 1, 16), np.nan, np.float32)
+    t[:, 14] = rng.normal(1500, 200, p + 1)
+    t[:, 15] = rng.uniform(300, 500, p + 1)
+    rated = rng.random(p) < 0.7
+    t[:p][rated, 0] = rng.normal(1500, 300, rated.sum())
+    t[:p][rated, 7] = rng.uniform(50, 400, rated.sum())
+    t[40:70, 0], t[40:70, 7] = 2600.0, 50.0  # a tie class at the top
+    return t
+
+
+def test_engine_on_cuda_equals_oracle(cuda):
+    from analyzer_tpu_torch.serve import QueryEngine, ViewPublisher, oracle
+
+    rng = np.random.default_rng(5)
+    p = 3000
+    pub = ViewPublisher()  # device=None: the card
+    view = pub.publish_state(_serve_table(rng, p))
+    assert view.table.is_cuda
+    host = view.host_table()
+    engine = QueryEngine(pub)
+    assert engine.warmup() == 5
+    for k in (1, 10, 29, 30, 31, 200):  # the tie class straddles k
+        got = engine.leaderboard(k)["leaders"]
+        want = oracle.leaderboard(host, p, k)
+        assert [(int(e["id"]), e["conservative"]) for e in got] == [
+            (row, float(s)) for row, s in want]
+    counts, rated = oracle.tier_histogram(host, p, engine.tier_edges)
+    tiers = engine.tier_histogram()
+    assert (tiers["counts"], tiers["rated"]) == (counts, rated)
+    for v in (-3000.0, 0.0, 777.5, float(host[40, 0] - 150.0), 1e9):
+        got = engine.percentile(v)
+        assert (got["below"], got["rated"]) == oracle.percentile(host, p, v)
+    for _ in range(50):
+        rows = rng.choice(p, size=10, replace=False)
+        na, nb = rng.integers(1, 6, 2)
+        a, b = [int(r) for r in rows[:na]], [int(r) for r in rows[5:5 + nb]]
+        got = engine.win_probability([str(r) for r in a], [str(r) for r in b])
+        assert got["p_a"] == float(oracle.win_probability(host, a, b, CFG.beta2))
+        assert got["quality"] == float(oracle.quality(host, a, b, CFG.beta2))
+    got = engine.get_ratings(["40", "0", "nobody"])
+    assert got["unknown"] == ["nobody"]
+    assert got["ratings"][0]["conservative"] == float(oracle.conservative_score(host, 40))
+
+
+def test_views_on_cuda_are_immutable_under_a_publishing_writer(cuda):
+    """Readers on their own threads against a writer that patches the view:
+    versions only rise for a reader, and each ratings response equals the
+    host table of the version it names."""
+    import threading
+
+    from analyzer_tpu_torch.serve import QueryEngine, ViewPublisher
+
+    rng = np.random.default_rng(6)
+    p = 3000
+    base = _serve_table(rng, p)
+    pub = ViewPublisher()
+    views = {1: pub.publish_state(base)}
+    frozen = views[1].host_table().copy()
+    engine = QueryEngine(pub).start()
+    stop, errors, seen = threading.Event(), [], [[] for _ in range(3)]
+
+    def writer():
+        try:
+            done = 0
+            while done < 40 or (min(len(s) for s in seen) < 2 and done < 4000):
+                done += 1
+                idx = np.unique(rng.integers(0, p, 256))
+                rows = base[idx]
+                rows[:, 0] += np.float32(1.0)
+                base[idx] = rows
+                v = pub.publish_state_patch(idx, rows, p, full_table=lambda: base)
+                views[v.version] = v
+        except BaseException as e:  # noqa: BLE001 — re-raised by the test
+            errors.append(e)
+        finally:
+            stop.set()
+
+    def reader(i):
+        try:
+            while not stop.is_set():
+                seen[i].append(engine.get_ratings([str(j) for j in range(i, p, 97)]))
+        except BaseException as e:  # noqa: BLE001 — re-raised by the test
+            errors.append(e)
+
+    threads = [threading.Thread(target=writer)] + [
+        threading.Thread(target=reader, args=(i,)) for i in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    engine.close()
+    assert not errors, errors
+    assert not any(t.is_alive() for t in threads)
+    assert pub.version >= 41 and len(views) == pub.version
+    # the first view still holds what it was published with
+    assert np.array_equal(views[1].table.cpu().numpy(), frozen, equal_nan=True)
+    for mine in seen:
+        vs = [r["version"] for r in mine]
+        assert vs == sorted(vs) and mine
+        for r in mine:
+            host = views[r["version"]].host_table()
+            for e in r["ratings"]:
+                mu = host[int(e["id"]), 0]
+                assert (e["mu"] is None and np.isnan(mu)) or e["mu"] == float(mu)

@@ -203,11 +203,20 @@ class TestInsidePort:
         assert np.isnan(state.table.numpy()[:, 0]).all()
 
     def test_unported_options_raise(self):
+        """Nothing of ``rate_history`` is left unported: ``hot_rows`` and
+        ``view_publisher`` (refused until the tiered table and the serve
+        plane were ported) now run; a bad backend still raises."""
+        from analyzer_tpu_torch.serve import ViewPublisher
+
         state, sched, _j, _js = _setup(n_matches=40, n_players=20, seed=1)
-        with pytest.raises(NotImplementedError, match="A9"):
-            rate_history(state, sched, CFG, hot_rows=8)
-        with pytest.raises(NotImplementedError, match="A11"):
-            rate_history(state, sched, CFG, view_publisher=object())
+        want, _ = rate_history(state, sched, CFG)
+        pub = ViewPublisher(device="cpu")
+        got, _ = rate_history(state, sched, CFG, hot_rows=64, view_publisher=pub)
+        assert np.array_equal(got.table.numpy(), want.table.numpy(), equal_nan=True)
+        assert np.array_equal(pub.current().host_table()[:20],
+                              want.table.numpy()[:20], equal_nan=True)
+        with pytest.raises(ValueError, match="hot_rows"):
+            rate_history(state, sched, CFG, hot_rows=-1)
         with pytest.raises(ValueError, match="backend"):
             rate_history(state, sched, CFG, kernel="fused", fuse_backend="pallas")
 

@@ -213,11 +213,23 @@ class TestRateStreamInPort:
             assert out.quality.shape == (0,)
 
     def test_unported_options_and_bad_rows_raise(self):
+        """``mesh=`` is the one option of ``rate_stream`` still unported;
+        ``hot_rows`` and ``view_publisher`` (refused until the tiered table
+        and the serve plane were ported) now run."""
+        from analyzer_tpu_torch.serve import ViewPublisher
+
         state, stream, _j, _js = _case("plain")
-        for kw, item in ((dict(mesh=object()), "A14"), (dict(hot_rows=8), "A9"),
-                         (dict(view_publisher=object()), "A11")):
-            with pytest.raises(NotImplementedError, match=item):
-                rate_stream(state, stream, CFG, **kw)
+        with pytest.raises(NotImplementedError, match="A14"):
+            rate_stream(state, stream, CFG, mesh=object())
+        with pytest.raises(ValueError, match="hot_rows"):
+            rate_stream(state, stream, CFG, mesh=object(), hot_rows=8)
+        want, _ = rate_stream(state, stream, CFG)
+        pub = ViewPublisher(device="cpu")
+        got, _ = rate_stream(state, stream, CFG, hot_rows=4096, view_publisher=pub)
+        assert np.array_equal(got.table.numpy(), want.table.numpy(), equal_nan=True)
+        n = state.n_players
+        assert np.array_equal(pub.current().host_table()[:n],
+                              want.table.numpy()[:n], equal_nan=True)
         small = PlayerState.create(10, device="cpu")
         with pytest.raises(ValueError, match="player row"):
             rate_stream(small, stream, CFG)
