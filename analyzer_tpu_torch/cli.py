@@ -1,5 +1,5 @@
 """Command-line interface of the port: ``python -m analyzer_tpu_torch.cli
-rate | serve | query``.
+synth | rate | serve | query | worker``.
 
 Counterparts of the same subcommands of ``analyzer_tpu.cli``, with the JAX
 package's flags, defaults, error texts (exit 2) and JSON lines.
@@ -16,19 +16,31 @@ checkpoint/resume. Routing is the JAX package's:
     check when ``--resume`` re-enters mid-schedule.
 
 ``--hot-rows N`` rates against a tiered table (an N-row hot set on the
-device over a host cold tier; bit-identical results).
+device over a host cold tier; bit-identical results). ``rate --db URI``
+reads the whole history from a reference-schema database instead of a
+stream file (``SqlStore.load_stream``: the players' DB ratings are the
+priors) and ``--db-write`` writes the final player ratings back.
 
-``serve --checkpoint ck.npz`` publishes a finished re-rate's table as
-version 1 and answers ``/v1/{ratings,leaderboard,winprob,tiers}`` from the
-device until ``--max-seconds`` passes or it is interrupted; ``query`` is
-one HTTP request against such an endpoint.
+``synth`` writes a synthetic history as ``.csv``, ``.npz`` or a
+reference-schema sqlite ``.db``.
 
-``rate`` and ``serve`` run on the card (``--device cuda``, the default) and
-refuse to start where there is none; ``--device cpu`` runs them on the
-CPU. The JAX flags ``--db``/``--db-write``, ``--mesh``, ``--trace``,
-``--metrics-out``, ``--trace-events`` and ``--obs-port`` are not ported
-yet (ROADMAP A10, A14, A16): ``serve --db`` and ``serve --shards N>1``
-exit 2 naming their ROADMAP items.
+``serve --checkpoint ck.npz`` (or ``--db URI``, the player table of a
+database, served by api id) publishes the table as version 1 and answers
+``/v1/{ratings,leaderboard,winprob,tiers}`` from the device until
+``--max-seconds`` passes or it is interrupted; ``query`` is one HTTP
+request against such an endpoint.
+
+``worker`` is the broker-consuming service loop (needs pika and a
+RabbitMQ; ``--requeue-failed`` redrives the dead-letter queue).
+
+``rate``, ``serve`` and ``worker`` run on the card (``--device cuda``, the
+default) and refuse to start where there is none; ``--device cpu`` runs
+them on the CPU. Not ported yet, each exiting 2 with its ROADMAP item:
+``synth --telemetry`` (A12), ``serve --shards N>1`` and ``worker
+--serve-shards N>1`` (A11b), ``worker --obs-port/--flight-dir/
+--profile-dir/--audit`` (A16). The JAX ``rate`` flags ``--mesh``,
+``--trace``, ``--metrics-out``, ``--trace-events`` and ``--obs-port``
+(ROADMAP A14, A16) are not offered.
 """
 
 from __future__ import annotations
@@ -72,12 +84,83 @@ def _load_stream(path: str):
     return stream, n_players
 
 
+def _load_inputs(args, cfg, timer, device):
+    """The rate paths' input loader: a CSV/npz stream file (--csv) or a
+    columnar full-history DB ingest (--db, ``SqlStore.load_stream``).
+    Returns (stream, n_players, db_state, db_store, player_ids) — the last
+    three None on the file path; db_state carries the players' DB rating
+    priors (on ``device``), which a fresh file run does not have."""
+    if args.db:
+        from analyzer_tpu_torch.service.sql_store import SqlStore
+
+        with timer.phase("load"):
+            store = SqlStore(args.db)
+            hist = store.load_stream(cfg, device=device)
+        return (
+            hist.stream, hist.state.n_players, hist.state, store,
+            hist.player_ids,
+        )
+    with timer.phase("load"):
+        stream, n_players = _load_stream(args.csv)
+    return stream, n_players, None, None, None
+
+
+def _maybe_db_write(args, timer, db_store, state, player_ids) -> dict:
+    """Final-table write-back for --db --db-write runs; returns a stats
+    extra ({} when not writing)."""
+    if db_store is None or not args.db_write:
+        return {}
+    with timer.phase("db_write"):
+        n = db_store.write_players(state, player_ids)
+    return {"players_written": n}
+
+
 def _sync(state) -> None:
     """Waits for the card to finish the run, for honest phase times."""
     if state.table.is_cuda:
         import torch
 
         torch.cuda.synchronize(state.table.device)
+
+
+def cmd_synth(args) -> int:
+    """A synthetic match history: ``.csv``, ``.npz`` (with the players'
+    archetype block, as the JAX package writes it) or a reference-schema
+    sqlite ``.db`` for the DB lanes."""
+    from analyzer_tpu_torch.io.csv_codec import save_stream
+    from analyzer_tpu_torch.io.synthetic import synthetic_players, synthetic_stream
+
+    if args.synergy and not args.out.endswith(".npz"):
+        # Archetypes ride only in the npz block; a synergy-driven stream
+        # whose composition channel can't be saved would train heads
+        # against unexplainable outcomes.
+        print("error: --synergy requires an .npz output", file=sys.stderr)
+        return 2
+    if args.telemetry:
+        print("error: synth --telemetry is not ported yet (ROADMAP A12, the "
+              "models and their telemetry block)", file=sys.stderr)
+        return 2
+    players = synthetic_players(args.players, seed=args.seed)
+    stream = synthetic_stream(
+        args.matches, players, seed=args.seed,
+        activity_concentration=args.concentration,
+        max_activity_share=args.max_share or None,
+        synergy_strength=args.synergy,
+    )
+    if args.out.endswith(".db"):
+        from analyzer_tpu_torch.io.dbgen import write_history_db
+
+        write_history_db(args.out, stream, players)
+    else:
+        save_stream(
+            args.out, stream,
+            # npz streams always carry the composition channel, as the JAX
+            # package's do.
+            archetype=players.archetype if args.out.endswith(".npz") else None,
+        )
+    print(f"wrote {stream.n_matches} matches / {args.players} players to "
+          f"{args.out}")
+    return 0
 
 
 def _checkpoint_hook(args, sched, cursor, start_step, finished):
@@ -132,10 +215,12 @@ def _rate_stats(stream, cursor, n_players, state, sched, timer, **extra) -> str:
     return json.dumps(stats)
 
 
-def _rate_streamed(args, cfg, timer, state, stream, cursor, n_players) -> int:
+def _rate_streamed(args, cfg, timer, state, stream, cursor, n_players,
+                   finalize=None) -> int:
     """The fully streamed path (``rate_stream``); its stats come from the
     runner's ``stats_out``, since the schedule never exists as one
-    object."""
+    object. ``finalize(state) -> dict`` runs after the rate (the DB
+    write-back) and its stats merge into the output line."""
     from analyzer_tpu_torch.sched import rate_stream
 
     stats: dict = {}
@@ -147,12 +232,15 @@ def _rate_streamed(args, cfg, timer, state, stream, cursor, n_players) -> int:
             hot_rows=args.hot_rows,
         )
         _sync(state)
+    extra = finalize(state) if finalize is not None else {}
     sched_view = types.SimpleNamespace(
         n_steps=stats["n_steps"], occupancy=stats["occupancy"]
     )
+    extra.setdefault(
+        "choose_batch_size_s", round(stats["choose_batch_size_s"], 3)
+    )
     print(_rate_stats(
-        stream, cursor, n_players, state, sched_view, timer,
-        choose_batch_size_s=round(stats["choose_batch_size_s"], 3),
+        stream, cursor, n_players, state, sched_view, timer, **extra,
     ))
     return 0
 
@@ -178,8 +266,21 @@ def _validate_rate(args) -> bool:
         return fail("--fuse-window must be positive")
     if args.hot_rows < 0:
         return fail("--hot-rows must be >= 0 (0 = untiered)")
-    if not args.csv:
-        return fail("--csv is required")
+    # Exactly one source; empty strings count as missing (``--db ""`` must
+    # not slip past the xor and crash in the loader).
+    args.csv = args.csv or None
+    args.db = args.db or None
+    if (args.csv is None) == (args.db is None):
+        return fail("exactly one of --csv / --db is required")
+    if args.db_write and not args.db:
+        return fail("--db-write requires --db")
+    if args.db_write and args.stop_after_steps is not None:
+        # A bounded run never reaches the write-back; silently skipping it
+        # would let a user believe partial ratings were persisted.
+        return fail(
+            "--db-write requires a finished run (drop --stop-after-steps, "
+            "or resume to completion and write then)"
+        )
     return True
 
 
@@ -211,8 +312,9 @@ def cmd_rate(args) -> int:
     if device is None:
         return 2
     timer = PhaseTimer()
-    with timer.phase("load"):
-        stream, n_players = _load_stream(args.csv)
+    stream, n_players, db_state, db_store, player_ids = _load_inputs(
+        args, cfg, timer, device
+    )
     cursor, start_step = 0, 0
     ck = None
     if args.resume:
@@ -224,11 +326,18 @@ def cmd_rate(args) -> int:
             + (f", superstep {start_step}" if start_step else ""),
             file=sys.stderr,
         )
+    elif db_state is not None:
+        state = db_state  # DB rating priors, seeds baked by load_stream
     else:
         state = PlayerState.create(n_players, cfg=cfg, device=device)
     if not args.checkpoint and args.stop_after_steps is None:
         # No snapshots to coordinate: the fully streamed path.
-        return _rate_streamed(args, cfg, timer, state, stream, cursor, n_players)
+        return _rate_streamed(
+            args, cfg, timer, state, stream, cursor, n_players,
+            finalize=lambda st: _maybe_db_write(
+                args, timer, db_store, st, player_ids
+            ),
+        )
     with timer.phase("pack"):
         sched = pack_schedule(
             stream.slice(cursor, stream.n_matches),
@@ -270,13 +379,17 @@ def cmd_rate(args) -> int:
     if args.checkpoint and finished:
         with timer.phase("checkpoint"):
             save_checkpoint(args.checkpoint, state, cursor=stream.n_matches)
-    print(_rate_stats(stream, cursor, n_players, state, sched, timer))
+    extra = (
+        _maybe_db_write(args, timer, db_store, state, player_ids)
+        if finished else {}
+    )
+    print(_rate_stats(stream, cursor, n_players, state, sched, timer, **extra))
     return 0
 
 
 def cmd_serve(args) -> int:
-    """ratesrv standalone: publish a checkpoint's rating table as version
-    1 and serve queries against it from the device."""
+    """ratesrv standalone: publish a rating table (checkpoint or DB) as
+    version 1 and serve queries against it from the device."""
     from analyzer_tpu_torch.config import RatingConfig
     from analyzer_tpu_torch.io.checkpoint import load_checkpoint
     from analyzer_tpu_torch.serve import QueryEngine, ViewPublisher
@@ -291,10 +404,6 @@ def cmd_serve(args) -> int:
     if args.shards < 1:
         print("error: --shards must be >= 1", file=sys.stderr)
         return 2
-    if args.db is not None:
-        print("error: serve --db is not ported yet (ROADMAP A10, the service "
-              "shell's SQL store); serve a --checkpoint", file=sys.stderr)
-        return 2
     if args.shards > 1:
         print("error: serve --shards > 1 is not ported yet (ROADMAP A11b, "
               "the sharded plane); use --shards 1", file=sys.stderr)
@@ -304,9 +413,17 @@ def cmd_serve(args) -> int:
         return 2
     cfg = RatingConfig.from_env()
     publisher = ViewPublisher(device=device)
-    ck = load_checkpoint(args.checkpoint, device=device)
-    # Checkpoints carry no id column: rows serve by index.
-    view = publisher.publish_state(ck.state)
+    if args.checkpoint:
+        ck = load_checkpoint(args.checkpoint, device=device)
+        # Checkpoints carry no id column: rows serve by index.
+        view = publisher.publish_state(ck.state)
+    else:
+        from analyzer_tpu_torch.service.sql_store import SqlStore
+
+        store = SqlStore(args.db)
+        hist = store.load_stream(cfg, device=device)
+        view = publisher.publish_state(hist.state, ids=hist.player_ids)
+        store.close()
     engine = QueryEngine(
         publisher, cfg=cfg, max_batch=args.max_batch, device=device
     )
@@ -318,7 +435,7 @@ def cmd_serve(args) -> int:
         "players": view.n_players,
         "version": view.version,
         "shards": args.shards,
-        "source": args.checkpoint,
+        "source": args.checkpoint or args.db,
     }))
     sys.stdout.flush()
     try:
@@ -379,11 +496,99 @@ def cmd_query(args) -> int:
     return 0
 
 
+def cmd_worker(args) -> int:
+    """The broker-consuming service loop (``service.worker.main``), or with
+    ``--requeue-failed`` the dead-letter redrive. Both need pika and a
+    RabbitMQ."""
+    from analyzer_tpu_torch.service.worker import A11B, A16
+
+    refused = [flag for flag, on in (
+        ("--obs-port", args.obs_port is not None),
+        ("--flight-dir", args.flight_dir is not None),
+        ("--profile-dir", args.profile_dir is not None),
+        ("--audit", args.audit),
+    ) if on]
+    if refused:
+        print(f"error: worker {' '.join(refused)} is not ported yet ({A16})",
+              file=sys.stderr)
+        return 2
+    if args.serve_shards is not None and args.serve_shards > 1:
+        print(f"error: worker --serve-shards > 1 is not ported yet ({A11B}); "
+              "use --serve-shards 1", file=sys.stderr)
+        return 2
+    if args.requeue_failed:
+        # Dead-letter redrive: move <QUEUE>_failed back onto the main
+        # queue and exit — run after fixing whatever poisoned them.
+        from analyzer_tpu_torch.config import ServiceConfig
+        from analyzer_tpu_torch.service.broker import make_pika_broker
+        from analyzer_tpu_torch.service.worker import requeue_failed
+
+        config = ServiceConfig.from_env()
+        # Deliberately NOT config.prefetch_count: the redrive acks each
+        # message right after republish (no deferred-ack window to
+        # cover), and the prefetch bound is also the worst-case
+        # duplicate window on a mid-drain crash — keep it one batch.
+        broker = make_pika_broker(
+            config.rabbitmq_uri, prefetch=config.batch_size
+        )
+        n = requeue_failed(broker, config)
+        print(json.dumps({"requeued": n, "queue": config.queue}))
+        return 0
+    device = _resolve_device(args, "run the worker")
+    if device is None:
+        return 2
+    from analyzer_tpu_torch.service.worker import main as worker_main
+
+    worker_main(serve_port=args.serve_port, serve_shards=args.serve_shards,
+                device=device)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="analyzer_tpu_torch", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
+    s = sub.add_parser("synth", help="generate a synthetic match history (.csv/.npz)")
+    s.add_argument("--matches", type=int, default=1000)
+    s.add_argument("--players", type=int, default=300)
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--concentration", type=float, default=0.8)
+    s.add_argument(
+        "--max-share", type=float, default=0.0, metavar="FRAC",
+        help="cap any player's expected share of match slots (bench.py "
+        "uses 1e-4: a physically plausible ladder; 0 = uncapped Zipf, "
+        "whose top grinder chains the whole schedule — io/synthetic.py)",
+    )
+    s.add_argument(
+        "--out", required=True,
+        help=".csv (python parser), .npz (binary), or .db "
+        "(reference-schema sqlite for the --db lanes)",
+    )
+    s.add_argument(
+        "--telemetry", action="store_true",
+        help="post-game telemetry for the analysis head (not ported yet: "
+        "ROADMAP A12)",
+    )
+    s.add_argument(
+        "--synergy", type=float, default=0.0, metavar="STRENGTH",
+        help="composition-dependent outcome term: teams gain "
+        "STRENGTH*400 skill points per unit of mean archetype-pair "
+        "synergy (io/synthetic.py synergy_matrix) (.npz only)",
+    )
+    s.set_defaults(fn=cmd_synth)
+
     s = sub.add_parser("rate", help="TrueSkill full-history re-rate of a stream")
     s.add_argument("--csv", help="match stream, .csv or .npz")
+    s.add_argument(
+        "--db", metavar="URI",
+        help="full-history columnar ingest straight from a database "
+        "(sqlite:///... or mysql://...; the reference's actual data "
+        "source, worker.py:176-191) — player rating priors come from "
+        "the player table",
+    )
+    s.add_argument(
+        "--db-write", action="store_true",
+        help="with --db: bulk-write the final player ratings back",
+    )
     s.add_argument("--checkpoint", help="state snapshot path (.npz)")
     s.add_argument("--resume", action="store_true", help="resume from --checkpoint")
     s.add_argument(
@@ -440,8 +645,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--checkpoint", help="rating-state snapshot (.npz)")
     s.add_argument(
         "--db", metavar="URI",
-        help="serve the player table of a reference-schema database (not "
-        "ported yet: ROADMAP A10)",
+        help="serve the player table of a reference-schema database "
+        "(sqlite:///... or mysql://...)",
     )
     s.add_argument(
         "--port", type=int, default=0, metavar="PORT",
@@ -490,6 +695,51 @@ def build_parser() -> argparse.ArgumentParser:
     )
     s.add_argument("--timeout", type=float, default=10.0)
     s.set_defaults(fn=cmd_query)
+
+    s = sub.add_parser("worker", help="broker-consuming service loop")
+    s.add_argument(
+        "--requeue-failed", action="store_true",
+        help="redrive <QUEUE>_failed back onto the main queue and exit "
+        "(run after fixing what dead-lettered them)",
+    )
+    s.add_argument(
+        "--obs-port", type=int, metavar="PORT",
+        help="obsd (not ported yet: ROADMAP A16)",
+    )
+    s.add_argument(
+        "--flight-dir", metavar="DIR",
+        help="flight-recorder dumps (not ported yet: ROADMAP A16)",
+    )
+    s.add_argument(
+        "--serve-port", type=int, metavar="PORT",
+        help="co-host the ratesrv query plane (/v1/ratings /v1/leaderboard "
+        "/v1/winprob /v1/tiers on localhost:PORT, also "
+        "ANALYZER_TPU_SERVE_PORT): a new view version publishes at every "
+        "batch commit",
+    )
+    s.add_argument(
+        "--serve-shards", type=int, metavar="S",
+        help="serve through the sharded plane (not ported yet beyond 1: "
+        "ROADMAP A11b)",
+    )
+    s.add_argument(
+        "--profile-dir", metavar="DIR",
+        help="device capture windows (not ported yet: ROADMAP A16)",
+    )
+    s.add_argument(
+        "--audit", action="store_true",
+        help="shadow audit of served queries (not ported yet: ROADMAP A16)",
+    )
+    s.add_argument(
+        "--no-slo-plane", action="store_true",
+        help="accepted for parity: the SLO plane is off until ROADMAP A16",
+    )
+    s.add_argument(
+        "--device", default="cuda",
+        help="where batches are rated: cuda (default; refuses to start "
+        "without a card) or cpu",
+    )
+    s.set_defaults(fn=cmd_worker)
     return p
 
 

@@ -1,6 +1,7 @@
 """TrueSkill seeding for players with no rating yet, in numpy on the host.
 
-Counterpart of ``analyzer_tpu.core.seeding.trueskill_seed_host``, with the
+Counterpart of ``analyzer_tpu.core.seeding`` (:func:`trueskill_seed_host`
+is its ingest entry point), with the
 semantics of the reference's ``get_trueskill_seed`` (``rater.py:42-62``):
 
   * fallback 1 — seed from rank points: ``max(rank_points_ranked,
@@ -54,3 +55,18 @@ def trueskill_seed(
         has_points, rank_points + sigma_points, tier_points + sigma_tier
     ).astype(dtype)
     return mu, sigma
+
+
+def trueskill_seed_host(
+    rank_points_ranked, rank_points_blitz, skill_tier, cfg: RatingConfig
+) -> tuple[np.ndarray, np.ndarray]:
+    """Seeding for the host-side ingest paths (the SQL store and the
+    service encoders): numpy in, numpy out. Counterpart of
+    ``analyzer_tpu.core.seeding.trueskill_seed_host``, which pins its jitted
+    seed to the CPU backend; :func:`trueskill_seed` already runs on the
+    host here, so the seed columns are baked before the table is moved to
+    its device, bit-equal to the JAX package's."""
+    return trueskill_seed(
+        np.asarray(rank_points_ranked), np.asarray(rank_points_blitz),
+        np.asarray(skill_tier), cfg,
+    )

@@ -41,16 +41,21 @@ def save_stream_csv(path: str, stream: MatchStream) -> None:
             w.writerow([i, mode, int(stream.winner[i]), int(stream.afk[i])] + teams)
 
 
-def save_stream_npz(path: str, stream: MatchStream) -> None:
+def save_stream_npz(
+    path: str, stream: MatchStream, archetype: np.ndarray | None = None
+) -> None:
     """The binary stream format (``np.savez``: a path without ``.npz``
-    gets the suffix appended)."""
-    np.savez(
-        path,
+    gets the suffix appended). ``archetype`` (``[P]`` int32 playstyle
+    buckets) rides along as the JAX package's archetype block."""
+    arrays = dict(
         player_idx=stream.player_idx,
         winner=stream.winner,
         mode_id=stream.mode_id,
         afk=stream.afk,
     )
+    if archetype is not None:
+        arrays["archetype"] = np.asarray(archetype, np.int32)
+    np.savez(path, **arrays)
 
 
 def load_stream_npz(path: str) -> MatchStream:
@@ -65,10 +70,13 @@ def load_stream_npz(path: str) -> MatchStream:
         )
 
 
-def save_stream(path: str, stream: MatchStream) -> None:
-    """Extension-dispatched save: ``.npz`` binary, anything else CSV."""
+def save_stream(
+    path: str, stream: MatchStream, archetype: np.ndarray | None = None
+) -> None:
+    """Extension-dispatched save: ``.npz`` binary (with the optional
+    archetype block), anything else CSV."""
     if path.endswith(".npz"):
-        save_stream_npz(path, stream)
+        save_stream_npz(path, stream, archetype)
     else:
         save_stream_csv(path, stream)
 

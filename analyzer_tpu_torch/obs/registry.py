@@ -3,8 +3,12 @@
 The port's own copy of ``analyzer_tpu.obs.registry`` (stdlib only): the
 same instruments, series keys, cardinality cap and snapshot shape, with the
 pre-declared schema cut to the families the port emits — the tiered
-table's ``tier.*`` and the serve plane's ``serve.*`` (integer counters that
-the parity tests hold equal to the JAX package's on the same schedule).
+table's ``tier.*``, the serve plane's ``serve.*`` (integer counters that
+the parity tests hold equal to the JAX package's on the same schedule),
+the service shell's ``worker.*`` and ``broker.*`` under the JAX names, and
+the SQL store's native-scanner counters ``sql.*`` (the port's own). The
+JAX package has no ``pipeline.*`` series: its pipelined engine reports
+through the ``worker.pipeline_*`` gauges, and so does the port's.
 
 Design constraints, in order:
 
@@ -202,6 +206,21 @@ STANDARD_COUNTERS = (
     # Keep-alive connection reuses saved by the pooled HTTP client
     # (obs/httpd.py PooledHTTPClient).
     "frontdoor.pool_reuse_total",
+    # The service worker (service/worker.py): the reference's only
+    # output was debug logs; these are its operator counters.
+    "worker.matches_rated_total",
+    "worker.batches_ok_total",
+    "worker.batches_failed_total",
+    "worker.dead_letters_total",
+    "worker.acks_total",
+    "worker.pipeline_degradations_total",
+    "worker.pipeline_engine_failures_total",
+    # The SQL store's native columnar scanner (service/csrc/fastsql.cc):
+    # scans it served, and falls back to the python scans (a build or
+    # load failure, or a failed scan). A run that meant to use the
+    # scanner reads nonzero scans and zero fallbacks.
+    "sql.native_scans_total",
+    "sql.native_fallbacks_total",
 )
 STANDARD_GAUGES = (
     # The tiered table's two budget gauges: the hot-set capacity in rows
@@ -213,6 +232,16 @@ STANDARD_GAUGES = (
     # first publish — a scraper can tell "no read plane" from "broken".
     "serve.view_version",
     "serve.view_age_seconds",
+    # The pipelined consume loop (service/pipeline.py): its resolved
+    # commit lag, batches in flight past the last commit, whether the
+    # worker fell back to the sequential loop, and throughput.
+    "worker.pipeline_lag",
+    "worker.pipeline_degraded",
+    "worker.pipeline_inflight",
+    "worker.matches_per_sec",
+    # Ready depth of the consume queue (labeled broker.queue_depth{queue=}
+    # series appear on first sample).
+    "broker.queue_depth",
 )
 
 #: Histogram families the runtime emits (labeled series like
@@ -223,9 +252,22 @@ STANDARD_HISTOGRAMS = (
 
 #: The span name catalog: every runtime-emitted trace-event name.
 SPAN_CATALOG = (
+    # worker / pipeline batch lifecycle
+    "batch.lifecycle",
+    "batch.encode",
+    "batch.pack",
+    "batch.chain",
+    "batch.dispatch",
+    "batch.compute",
+    "batch.fetch",
+    "batch.write_back",
+    "batch.commit",
     # the tiered table's promotion/demotion traffic
     "tier.promote",
     "tier.demote",
+    # worker instants
+    "worker.dead_letter",
+    "worker.pipeline_degraded",
 )
 
 #: Distinct labeled series allowed per family (base metric name) before
@@ -269,6 +311,23 @@ SCHEMA_HELP = {
     "frontdoor.pool_reuse_total":
         "keep-alive connection reuses by the pooled HTTP client",
     "serve.microbatch_occupancy": "per-tick serve microbatch fill",
+    "worker.matches_rated_total": "matches rated and committed by the worker",
+    "worker.batches_ok_total": "batches that rated and committed cleanly",
+    "worker.batches_failed_total": "batches that hit the failure policy",
+    "worker.dead_letters_total": "messages dead-lettered to the failed queue",
+    "worker.acks_total": "messages acked after a committed batch",
+    "worker.pipeline_degradations_total":
+        "permanent fallbacks from the pipelined to the sequential loop",
+    "worker.pipeline_engine_failures_total":
+        "transient pipelined-engine construction failures (retried)",
+    "worker.pipeline_lag": "commit lag (batches) of the pipelined engine",
+    "worker.pipeline_degraded": "1 while the sequential fallback is active",
+    "worker.pipeline_inflight": "pipelined batches submitted, not harvested",
+    "worker.matches_per_sec": "worker throughput since start",
+    "broker.queue_depth": "ready messages on the consume queue",
+    "sql.native_scans_total": "queries served by the native sqlite scanner",
+    "sql.native_fallbacks_total":
+        "native sqlite scanner unavailable or failed: python scans instead",
 }
 
 

@@ -52,20 +52,13 @@ from analyzer_tpu_torch.core.state import TABLE_WIDTH
 from analyzer_tpu_torch.device import resolve_device
 from analyzer_tpu_torch.logging_utils import get_logger
 from analyzer_tpu_torch.obs import get_registry
+from analyzer_tpu_torch.service.encode import row_bucket
 
 logger = get_logger(__name__)
 
 #: Floor of the staging table's row bucket and of the ladder that
 #: :meth:`ViewPublisher.warm_patch_buckets` walks.
 PATCH_BUCKET_FLOOR = 64
-
-
-def row_bucket(n_players: int) -> int:
-    """Power-of-two player-row bucket (floor 64) — the single owner of the
-    served table's sizing. Own copy of ``analyzer_tpu.service.encode.
-    row_bucket``; it moves to the port's ``service/encode.py`` when the
-    service shell (ROADMAP A10) brings that module."""
-    return max(64, 1 << max(n_players - 1, 0).bit_length())
 
 
 def _pow2_bucket(n: int, floor: int) -> int:

@@ -32,16 +32,19 @@ lines:
   5. main: ``pack_schedule(windowed=True)`` + ``rate_history(kernel=
      "fused")`` at full size, with the kernel's launch count taken over
      exactly that run (it must equal the windows dispatched); then the
-     first tenth of the schedule through ``kernel="reference"`` (plain
+     first twentieth of the schedule through ``kernel="reference"`` (plain
      PyTorch on the card) and through the fused path: NaN pattern exact,
      floats within ``PATH_RTOL``;
-  6. stream: ``rate_stream(kernel="fused")`` over the same stream must give
-     the main path's table bit for bit, through the kernel;
-  7. tier: the same schedule through ``rate_history(kernel="fused",
+  prefix: the phases that re-rate the history a second time run on its
+     first million matches (over the whole player table), against
+     ``rate_history(kernel="fused")`` on that prefix, launches counted;
+  6. stream: ``rate_stream(kernel="fused")`` over the prefix must give the
+     prefix's table bit for bit, through the kernel;
+  7. tier: the prefix through ``rate_history(kernel="fused",
      hot_rows=262144, view_publisher=pub)`` — a hot set of 17% of the
      players over a pinned host tier — with the kernel's launch count taken
-     over that run: the table must equal phase 5's bit for bit, and the run
-     must have paged; then the first tenth of the schedule at
+     over that run: the table must equal the prefix's bit for bit, and the
+     run must have paged; then the first twentieth of the schedule at
      ``hot_rows=32768`` with the reference kernel, a hot set smaller than a
      chunk's rows (chunks split, rows thrash), against the untiered prefix
      of phase 5, bit for bit;
@@ -55,9 +58,9 @@ lines:
      then 4 readers against a writer that republishes patches: versions
      only rise per reader and each response equals the oracle at its own
      version;
-  9. cli: the stream saved as npz, then ``cli rate --kernel fused`` (the
-     streamed path) must report the main path's ``players_rated`` and
-     ``mean_mu``; on a 1M-match prefix a bounded run with periodic
+  9. cli: the prefix saved as npz, then ``cli rate --kernel fused`` (the
+     streamed path) must report the prefix's ``players_rated`` and
+     ``mean_mu``; on the same prefix a bounded run with periodic
      checkpoints plus ``--resume`` must equal a one-shot checkpointed run
      bit for bit, and so must ``cli rate --hot-rows``;
  10. serve-http: ``python -m analyzer_tpu_torch.cli serve --checkpoint`` on
@@ -66,13 +69,37 @@ lines:
  11. rater: one 3v3 of fresh tier-15 players through ``rater.rate_match``
      on the card: winner shared mu 2052.41, equal to ``rate_and_apply`` on
      the same match;
- 12. timing: the fused window per window at the main path's shapes
+ 12. db: the reference's DB round trip at its documented size — 1M
+     matches / 333,333 players written by ``io.dbgen`` (no
+     participant_items rows, as the JAX package's ingest fixture), then
+     ``cli rate --db --db-write --kernel fused`` in a subprocess (its
+     load / rate / db_write seconds, its ``fused_window`` launches, and
+     the native scanner's scans, which must be nonzero with no fallback)
+     and ``--kernel reference`` on a copy: the player rows of the two
+     files equal bit for bit; then ``cli serve --db`` on the written file,
+     whose ``cli query ratings`` and ``leaderboard --k 10`` bodies must
+     equal the database rows exactly;
+ 13. worker: the service_bench fixture (50,000 matches / 16,666 players
+     with participant_items rows) in four copies: ``Worker(InMemoryBroker(),
+     SqlStore(copy), ServiceConfig(batch_size=500, idle_timeout=0))``
+     sequential, and pipelined with the lag ``warmup()`` chose and a serve
+     plane (``serve_port=0``): both rate all 50,000 with no dead letter, the
+     two files' player / participant / participant_items / match rows are
+     equal bit for bit, ``/v1/ratings`` over HTTP equals the committed
+     rows, and ``cli rate --db --db-write --kernel fused`` on the third
+     copy writes the same player rows; on the fourth copy one match loses
+     its participant_items rows and the pipelined loop, fed the first
+     10,000 ids, dead-letters exactly that message. Each loop's matches/s,
+     lag, probe, native-scan fallbacks and per-batch span split are
+     printed;
+ 14. timing: the fused window per window at the main path's shapes
      (``python -m analyzer_tpu_torch.experiments.window_timing``'s
      measurement: windows cut to 1..16 looped steps for the per-step
      slope, then as the main path calls it, with every step looped, and
      with a cluster of 16), beside its plain version and its bound; then
      one ``{"kernels": [...]}`` line: per kernel its launches on its path
-     (the fused window's on the tiered path beside them), the error
+     (the fused window's on the tiered path, the DB lane and the worker
+     phase's ``cli rate --db`` beside them), the error
      against its plain version, its time at its path's shapes beside the
      plain version's, the library call's and the card's bound, and the
      time of its earlier launch pattern measured in this run (the row
@@ -107,9 +134,37 @@ N_MATCHES = 10_000_000
 SEED = 42
 N_CHECK_WINDOWS = 8
 PREFIX_STEPS = 128
-# The kill-and-resume drill of the cli phase runs on this prefix of the
-# stream (over the whole player table).
+# The phases that re-rate [main]'s history a second time — [stream], [tier]
+# and both [cli] drills — run on this prefix of the stream (over the whole
+# player table), held bit for bit against rate_history(kernel="fused") on
+# the same prefix: the same checks at a tenth of the depth, which makes
+# room for [db] and [worker].
 CLI_PREFIX_MATCHES = 1_000_000
+# [db]: the DB round trip at the reference's documented size (1M matches,
+# 333,333 players, max_activity_share=1e-4, seed 42), the file built
+# without participant_items rows, as the JAX package's ingest fixture is
+# (the columnar lane never reads them).
+DB_MATCHES = 1_000_000
+DB_PLAYERS = 333_333
+# [worker]: the service_bench fixture (n_players = matches // 3, with
+# participant_items rows) in batches of 500 ids.
+WORKER_MATCHES = 50_000
+WORKER_BATCH = 500
+# Runs the port's cli in a subprocess and reports, on stderr, the kernel
+# launches and native-scanner counters of that process.
+COUNTED_CLI = (
+    "import json, sys\n"
+    "from analyzer_tpu_torch import cli\n"
+    "from analyzer_tpu_torch.kernels import fused_window as fw\n"
+    "from analyzer_tpu_torch.obs import get_registry\n"
+    "rc = cli.main(sys.argv[1:])\n"
+    "c = get_registry().snapshot()['counters']\n"
+    "print(json.dumps({'fused_window_launches': fw.launches,\n"
+    "                  'native_scans': c['sql.native_scans_total'],\n"
+    "                  'native_fallbacks': c['sql.native_fallbacks_total']}),\n"
+    "      file=sys.stderr)\n"
+    "sys.exit(rc)\n"
+)
 # The tiered re-rate's hot set (of 1.5M players), and the hot set of the
 # thrashing run: larger than one superstep's rows, smaller than a chunk's.
 TIER_HOT_ROWS = 262_144
@@ -682,6 +737,313 @@ def rater_phase(dev, cfg) -> None:
         raise AssertionError(f"rate_match gave {mu}, rate_and_apply {want}, want 2052.41")
 
 
+def counted_cli(*argv, timeout=900) -> tuple[dict, dict, float]:
+    """``cli <argv>`` of the port in a subprocess (:data:`COUNTED_CLI`):
+    its stats line, its kernel-launch and native-scanner counts, and its
+    wall seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", COUNTED_CLI, *argv],
+        capture_output=True, text=True, timeout=timeout,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+    )
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {' '.join(argv)} exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    counts = [ln for ln in proc.stderr.splitlines()
+              if ln.startswith('{"fused_window_launches"')]
+    return json.loads(proc.stdout.strip().splitlines()[-1]), json.loads(counts[-1]), wall
+
+
+def player_rows(path: str) -> list:
+    """Every player row of a database, in insertion order."""
+    import sqlite3
+
+    conn = sqlite3.connect(path)
+    try:
+        return conn.execute('SELECT * FROM "player" ORDER BY rowid').fetchall()
+    finally:
+        conn.close()
+
+
+def db_phase(cli, tmp: str, dev, n_matches: int = DB_MATCHES) -> dict:
+    """Phase [db]: the reference's DB round trip at its documented size —
+    ``io.dbgen`` writes the history, ``cli rate --db --db-write`` re-rates
+    it on the card through the fused kernel (a subprocess, its launches and
+    native scans counted there) and, on a copy, through the reference
+    kernel: the player rows must be equal bit for bit; then ``cli serve
+    --db`` serves the written file and ``cli query`` bodies must equal the
+    database rows exactly."""
+    import signal
+
+    from analyzer_tpu_torch.io.dbgen import write_history_db
+    from analyzer_tpu_torch.io.synthetic import synthetic_players, synthetic_stream
+
+    fused_db = os.path.join(tmp, "history.db")
+    ref_db = os.path.join(tmp, "history_ref.db")
+    t0 = time.perf_counter()
+    n_players = DB_PLAYERS if n_matches == DB_MATCHES else n_matches // 3
+    players = synthetic_players(n_players, seed=SEED)
+    stream = synthetic_stream(n_matches, players, seed=SEED, max_activity_share=1e-4)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_history_db(fused_db, stream, players, items=False)
+    t_db = time.perf_counter() - t0
+    shutil.copy(fused_db, ref_db)
+    log(f"[db] {n_matches} matches / {n_players} players (max_activity_share "
+        f"1e-4, seed {SEED}): stream {t_gen:.2f} s, io.dbgen write (no "
+        f"participant_items rows) {t_db:.2f} s, {os.path.getsize(fused_db):,} bytes")
+    del stream, players
+
+    out = {}
+    for kernel, path in (("fused", fused_db), ("reference", ref_db)):
+        stats, counts, wall = counted_cli(
+            "rate", "--db", f"sqlite:///{path}", "--db-write", "--kernel", kernel,
+            "--device", dev.type)
+        out[kernel] = (stats, counts)
+        ph = stats["phases"]
+        log(f"[db] cli rate --db --db-write --kernel {kernel} (subprocess, "
+            f"{wall:.2f} s): load {ph['load']} s, rate {ph['rate']} s, db_write "
+            f"{ph['db_write']} s; {stats['matches']} matches, players_rated "
+            f"{stats['players_rated']}, players_written {stats['players_written']}, "
+            f"mean_mu {stats['mean_mu']}, supersteps {stats['supersteps']}; "
+            f"fused_window launches {counts['fused_window_launches']}; native "
+            f"scans {counts['native_scans']}, fallbacks {counts['native_fallbacks']}")
+        if counts["native_scans"] == 0 or counts["native_fallbacks"] != 0:
+            raise AssertionError(f"the native sqlite scanner did not serve the "
+                                 f"{kernel} run's load: {counts}")
+    launches = out["fused"][1]["fused_window_launches"]
+    # (A CPU rehearsal of this phase launches no kernel: its fused path is
+    # the plain version.)
+    if (launches == 0) == (dev.type == "cuda") or (
+            out["reference"][1]["fused_window_launches"] != 0):
+        raise AssertionError(f"fused_window launches: fused run {launches}, "
+                             f"reference run {out['reference'][1]}")
+    rows_f, rows_r = player_rows(fused_db), player_rows(ref_db)
+    same = rows_f == rows_r
+    written = sum(1 for r in rows_f if r[4] is not None)
+    log(f"[db] player rows of the fused and reference files: {len(rows_f)} rows, "
+        f"{written} with ratings; equal bit for bit: {same}")
+    if not same or written != out["fused"][0]["players_written"]:
+        raise AssertionError("fused and reference DB write-backs differ")
+
+    # serve the written file
+    by_id = {r[0]: r for r in rows_f}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "analyzer_tpu_torch.cli", "serve", "--db",
+         f"sqlite:///{fused_db}", "--port", "0", "--max-seconds", "300",
+         "--device", dev.type],
+        stdout=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+    )
+    try:
+        line = ""
+        while not line.startswith('{"serving"'):
+            line = proc.stdout.readline()
+            if not line:
+                raise AssertionError(f"cli serve --db exited {proc.wait()} before serving")
+        info = json.loads(line)
+        t_up = time.perf_counter() - t0
+
+        def query(*argv):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["query", *argv, "--url", info["serving"]])
+            if rc != 0:
+                raise AssertionError(f"cli query {' '.join(argv)} exited {rc}")
+            return json.loads(buf.getvalue())
+
+        rated_ids = [r[0] for r in rows_f if r[4] is not None]
+        rng = np.random.default_rng(SEED)
+        ids = [rated_ids[i] for i in rng.choice(len(rated_ids), 64, replace=False)]
+        got = query("ratings", "--ids", ",".join(ids))
+        for e in got["ratings"]:
+            row = by_id[e["id"]]
+            if not e["rated"] or e["mu"] != float(np.float32(row[4])) or (
+                    e["sigma"] != float(np.float32(row[5]))):
+                raise AssertionError(f"served {e} != DB row {row[:6]}")
+        if got["unknown"] or len(got["ratings"]) != 64:
+            raise AssertionError(f"served ratings: {got}")
+        # The leaderboard over the DB rows, in the oracle's order.
+        host = np.full((len(rows_f) + 1, 16), np.nan, np.float32)
+        for i, r in enumerate(rows_f):
+            if r[4] is not None:
+                host[i, 0], host[i, 7] = r[4], r[5]
+        want = expected_leaders(host, len(rows_f), 10, id_of=lambda i: rows_f[i][0])
+        lb = query("leaderboard", "--k", "10")
+        if lb["leaders"] != want:
+            raise AssertionError(f"served leaderboard {lb['leaders']} != {want}")
+        log(f"[db] cli serve --db on the written file (players {info['players']}, "
+            f"version {info['version']}) up {t_up:.2f} s after start; cli query "
+            f"ratings of 64 rated ids and leaderboard --k 10 equal the DB rows "
+            f"exactly (served mu/sigma = the rows' f32)")
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        proc.stdout.close()
+    if rc != 0:
+        raise AssertionError(f"cli serve --db exited {rc} after an interrupt")
+    for path in (fused_db, ref_db):
+        os.unlink(path)
+    return {"launches_db": launches}
+
+
+def batch_split(names) -> str:
+    """Mean ms per batch of each named tracer span since the last reset."""
+    from analyzer_tpu_torch.obs import get_tracer
+
+    evs = [e for e in get_tracer().events() if e.get("ph") == "X"]
+    parts = []
+    for name in names:
+        d = [e["dur"] for e in evs if e["name"] == name]
+        if d:
+            parts.append(f"{name} {np.mean(d) / 1e3:.2f} ms x{len(d)}")
+    return ", ".join(parts)
+
+
+def worker_phase(cli, tmp: str, dev, n_matches: int = WORKER_MATCHES) -> dict:
+    """Phase [worker]: the reference's consume loop — ``Worker`` over
+    ``InMemoryBroker`` + ``SqlStore`` in 500-id batches on the card,
+    sequential and pipelined (auto lag from ``warmup()``, serving over
+    HTTP), against ``cli rate --db --db-write --kernel fused`` on a copy of
+    the same file; then one poisoned match under the pipelined loop."""
+    import shutil as _sh
+    import sqlite3
+    import urllib.request
+
+    from analyzer_tpu_torch.config import RatingConfig, ServiceConfig
+    from analyzer_tpu_torch.experiments.service_bench import build_db, match_ids, run_loop
+    from analyzer_tpu_torch.kernels import fused_window as fw
+    from analyzer_tpu_torch.obs import get_registry, reset_tracer
+    from analyzer_tpu_torch.service import InMemoryBroker, SqlStore, Worker
+
+    n_players = n_matches // 3
+    pristine = os.path.join(tmp, "service.db")
+    t0 = time.perf_counter()
+    build_db(pristine, n_matches, n_players, SEED, items=True)
+    t_build = time.perf_counter() - t0
+    copies = {k: os.path.join(tmp, f"service_{k}.db")
+              for k in ("sequential", "pipelined", "cli", "poison")}
+    for path in copies.values():
+        _sh.copy(pristine, path)
+    ids = match_ids(pristine)
+    log(f"[worker] fixture: {n_matches} matches / {n_players} players with "
+        f"participant_items rows, {t_build:.2f} s; 4 copies")
+
+    def dump(path):
+        conn = sqlite3.connect(path)
+        try:
+            return [conn.execute(f'SELECT * FROM "{t}" ORDER BY rowid').fetchall()
+                    for t in ("player", "participant", "participant_items", "match")]
+        finally:
+            conn.close()
+
+    results = {}
+    for mode in ("sequential", "pipelined", "poison"):
+        path = copies[mode]
+        if mode == "poison":
+            conn = sqlite3.connect(path)
+            bad = conn.execute("SELECT api_id FROM match WHERE game_mode != 'aral' "
+                               "ORDER BY created_at LIMIT 1 OFFSET ?",
+                               (n_matches // 10,)).fetchone()[0]
+            conn.execute("DELETE FROM participant_items WHERE participant_api_id "
+                         "IN (SELECT api_id FROM participant WHERE match_api_id = ?)",
+                         (bad,))
+            conn.commit()
+            conn.close()
+        pipelined = mode != "sequential"
+        broker = InMemoryBroker()
+        cfg = ServiceConfig(batch_size=WORKER_BATCH, idle_timeout=0)
+        w = Worker(broker, SqlStore(f"sqlite:///{path}"), cfg, RatingConfig(),
+                   pipeline=pipelined, serve_port=0 if mode == "pipelined" else None,
+                   device=dev)
+        t0 = time.perf_counter()
+        w.warmup()
+        t_warm = time.perf_counter() - t0
+        reset_tracer()
+        fallbacks0 = get_registry().counter("sql.native_fallbacks_total").value
+        # The poison drill consumes the first fifth of the ids (the
+        # poisoned match among them): the same check at a fifth of the
+        # depth of the full runs.
+        run_ids = ids[: n_matches // 5] if mode == "poison" else ids
+        got = run_loop(w, broker, run_ids, cfg.queue)
+        stats = w.stats()
+        fallbacks = int(get_registry().counter("sql.native_fallbacks_total").value
+                        - fallbacks0)
+        failed = [m.body.decode() for m in broker.queues.get(cfg.failed_queue, [])]
+        split = batch_split(("batch.encode", "batch.pack", "batch.chain",
+                             "batch.dispatch", "batch.compute", "batch.fetch",
+                             "batch.write_back", "batch.commit"))
+        served = None
+        if mode == "pipelined":
+            conn = sqlite3.connect(path)
+            rows = conn.execute("SELECT api_id, trueskill_mu, trueskill_sigma FROM "
+                                "player WHERE trueskill_mu IS NOT NULL "
+                                "ORDER BY rowid LIMIT 200").fetchall()
+            conn.close()
+            url = (w.serve_server.url + "/v1/ratings?ids="
+                   + ",".join(r[0] for r in rows))
+            with urllib.request.urlopen(url, timeout=30) as resp:
+                body = json.loads(resp.read())
+            served = [(e["id"], e["mu"], e["sigma"]) for e in body["ratings"]]
+            want = [(r[0], float(np.float32(r[1])), float(np.float32(r[2]))) for r in rows]
+            if served != want:
+                raise AssertionError("served /v1/ratings differ from the committed rows")
+        w.close()
+        log(f"[worker] {mode}: {got['matches_per_s']:,.0f} matches/s "
+            f"({len(run_ids)} ids in {got['seconds']:.2f} s, {got['batches']} "
+            f"flushes; warmup {t_warm:.2f} s); matches_rated {stats['matches_rated']}, "
+            f"dead letters {stats['dead_letters']}, lag {stats['pipeline_lag']}, "
+            f"measured rtt {stats['measured_rtt_ms']} ms, host "
+            f"{stats['measured_host_ms']} ms/batch; native-scan fallbacks "
+            f"{fallbacks}; per batch: {split}"
+            + (f"; /v1/ratings of {len(served)} players over HTTP = the committed "
+               "rows bit for bit" if served is not None else ""))
+        results[mode] = (stats, failed, got)
+        if mode == "poison":
+            if failed != [bad] or stats["matches_rated"] != len(run_ids) - 1:
+                raise AssertionError(f"poison: dead-lettered {failed}, rated "
+                                     f"{stats['matches_rated']} (want [{bad}])")
+            log(f"[worker] poison: match {bad} without participant_items rows: "
+                f"exactly that message dead-lettered, the other "
+                f"{stats['matches_rated']} committed")
+        elif failed or stats["matches_rated"] != n_matches or stats["dead_letters"]:
+            raise AssertionError(f"{mode}: dead letters {failed[:5]}, rated "
+                                 f"{stats['matches_rated']}")
+    seq, pipe = dump(copies["sequential"]), dump(copies["pipelined"])
+    same = seq == pipe
+    log(f"[worker] sequential = pipelined over player/participant/"
+        f"participant_items/match rows ({sum(len(t) for t in seq)} rows): {same}")
+    if not same:
+        raise AssertionError("pipelined worker rows differ from the sequential worker's")
+
+    fw.launches = 0
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["rate", "--db", f"sqlite:///{copies['cli']}", "--db-write",
+                       "--kernel", "fused", "--device", dev.type])
+    wall = time.perf_counter() - t0
+    cli_launches = fw.launches
+    if rc != 0 or (cli_launches == 0) == (dev.type == "cuda"):
+        raise AssertionError(f"cli rate --db exited {rc}, {cli_launches} launches")
+    stats = json.loads(buf.getvalue().strip().splitlines()[-1])
+    same = seq[0] == dump(copies["cli"])[0]
+    log(f"[worker] cli rate --db --db-write --kernel fused on the third copy: "
+        f"{wall:.2f} s, players_written {stats['players_written']}, "
+        f"fused_window launches {cli_launches}; the workers' player rows equal "
+        f"its rows exactly: {same}")
+    if not same:
+        raise AssertionError("worker player rows differ from cli rate --db's")
+    return {"launches_worker_cli": cli_launches}
+
+
 def run_cli(cli, *argv) -> dict:
     """``cli.main(argv)`` in this process; its stats line, parsed."""
     buf = io.StringIO()
@@ -700,6 +1062,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--matches", type=int, default=N_MATCHES)
     ap.add_argument("--players", type=int, default=N_PLAYERS)
+    ap.add_argument("--db-matches", type=int, default=DB_MATCHES)
+    ap.add_argument("--worker-matches", type=int, default=WORKER_MATCHES)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -720,6 +1084,7 @@ def main(argv=None) -> int:
     from analyzer_tpu_torch.serve import ViewPublisher
     from analyzer_tpu_torch.sched.feed import stage_chunk_fused
     from analyzer_tpu_torch.sched.residency import resolve_fuse
+    from analyzer_tpu_torch.service import _native_sql
 
     dev = torch.device("cuda")
     cfg = RatingConfig()
@@ -733,7 +1098,7 @@ def main(argv=None) -> int:
 
     # -- 2. build (nvcc and g++ started together) ---------------------------
     build_all((("nvcc fused_window", fw.load), ("nvcc row_scatter", rs.load),
-               ("g++ packer", _native.load)))
+               ("g++ packer", _native.load), ("g++ fastsql", _native_sql.load)))
     for name, mod in (("fused_window", fw), ("row_scatter", rs)):
         for line in mod.kernel_build_log().splitlines():
             if "registers" in line or "spill" in line:
@@ -854,12 +1219,12 @@ def main(argv=None) -> int:
         f"windows {stats['windows']}, spills {stats['spills']}, pad steps "
         f"{stats['pad_steps']}, working set high-water {stats['working_set_rows']} "
         f"rows; fused_window launches {launches}; players rated {n_rated}")
-    a_f = fused_state.table.cpu().numpy()
     del table, rated, ratings, fused_state
 
-    # The reference kernel (plain PyTorch on the card) over the first tenth
-    # of the schedule, against the fused path over the same steps.
-    ref_steps = min(sched.n_steps, max(PREFIX_STEPS, sched.n_steps // 10))
+    # The reference kernel (plain PyTorch on the card) over the first
+    # twentieth of the schedule (a tenth until the [db] and [worker] phases
+    # needed the time), against the fused path over the same steps.
+    ref_steps = min(sched.n_steps, max(PREFIX_STEPS, sched.n_steps // 20))
     pre = {}
     for kernel in ("reference", "fused"):
         t0 = time.perf_counter()
@@ -882,27 +1247,46 @@ def main(argv=None) -> int:
     if path_rel > PATH_RTOL:
         raise AssertionError(f"fused vs reference error {path_rel} > {PATH_RTOL}")
     del a_p, pre
-    mu = a_f[:n_players, 0]
-    main_rated = int((~np.isnan(mu)).sum())
-    main_mean_mu = round(float(mu[~np.isnan(mu)].mean()), 2)
 
-    # -- 6. the streamed feed -----------------------------------------------
+    # -- the prefix the re-running phases use ------------------------------
+    pre = stream.slice(0, min(CLI_PREFIX_MATCHES, stream.n_matches))
+    pre_sched = pack_schedule(pre, pad_row=state0.pad_row, windowed=True)
+    fw.launches = 0
+    p_stats: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre_state, _ = rate_history(state0, pre_sched, cfg, kernel="fused", stats_out=p_stats)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    a_pre = pre_state.table.cpu().numpy()
+    del pre_state
+    if fw.launches == 0 or fw.launches != p_stats["windows"]:
+        raise AssertionError(f"prefix run: {fw.launches} launches for {p_stats['windows']} windows")
+    pre_mu = a_pre[:, 0]
+    pre_rated = int((~np.isnan(pre_mu)).sum())
+    pre_mean_mu = round(float(pre_mu[~np.isnan(pre_mu)].mean()), 2)
+    log(f"[prefix] first {pre.n_matches} matches: rate_history(kernel='fused') "
+        f"{t_pre:.3f} s, {pre_sched.n_steps} steps, windows {p_stats['windows']}, "
+        f"fused_window launches {fw.launches}; players rated {pre_rated}")
+
+    # -- 6. the streamed feed (on the prefix) -------------------------------
     fw.launches = 0
     s_stats: dict = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    stream_state, _ = rate_stream(state0, stream, cfg, kernel="fused", stats_out=s_stats)
+    stream_state, _ = rate_stream(state0, pre, cfg, kernel="fused", stats_out=s_stats)
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
     s_launches = fw.launches
-    same = np.array_equal(stream_state.table.cpu().numpy(), a_f, equal_nan=True)
+    same = np.array_equal(stream_state.table.cpu().numpy(), a_pre, equal_nan=True)
     del stream_state
-    log(f"[stream] rate_stream(kernel='fused'): wall {t_stream:.3f} s, "
-        f"{stream.n_matches / t_stream:,.0f} matches/s; n_steps {s_stats['n_steps']} "
+    log(f"[stream] rate_stream(kernel='fused') on the first {pre.n_matches} matches: "
+        f"wall {t_stream:.3f} s, "
+        f"{pre.n_matches / t_stream:,.0f} matches/s; n_steps {s_stats['n_steps']} "
         f"x B={s_stats['batch_size']}, occupancy {s_stats['occupancy']:.4f}, choose "
         f"batch size {s_stats['choose_batch_size_s']:.3f} s; windows {s_stats['windows']}, "
         f"spills {s_stats['spills']}; fused_window launches {s_launches}; table "
-        f"bit-identical to rate_history(kernel='fused'): {same}")
+        f"bit-identical to rate_history(kernel='fused') on the prefix: {same}")
     if s_launches == 0 or s_launches != s_stats["windows"]:
         raise AssertionError(
             f"rate_stream launched fused_window {s_launches} times for "
@@ -923,7 +1307,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tier_state, _ = rate_history(
-        state0, sched, cfg, kernel="fused", hot_rows=tier_hot,
+        state0, pre_sched, cfg, kernel="fused", hot_rows=tier_hot,
         view_publisher=pub, stats_out=t_stats,
     )
     torch.cuda.synchronize()
@@ -931,11 +1315,12 @@ def main(argv=None) -> int:
     tier_launches = fw.launches
     tc = tier_counters()
     reg = get_registry().snapshot()
-    same = np.array_equal(tier_state.table.cpu().numpy(), a_f, equal_nan=True)
+    same = np.array_equal(tier_state.table.cpu().numpy(), a_pre, equal_nan=True)
     log(f"[tier] rate_history(kernel='fused', hot_rows={tier_hot}, "
-        f"view_publisher=pub): wall {t_tier:.3f} s, "
-        f"{sched.n_matches / t_tier:,.0f} matches/s ({t_tier / t_fused:.2f}x the "
-        f"untiered wall); hits {tc['hits']}, misses {tc['misses']} (hit rate "
+        f"view_publisher=pub) on the first {pre.n_matches} matches: wall "
+        f"{t_tier:.3f} s, {pre.n_matches / t_tier:,.0f} matches/s "
+        f"({t_tier / t_pre:.2f}x the untiered prefix's wall); hits {tc['hits']}, "
+        f"misses {tc['misses']} (hit rate "
         f"{tc['hits'] / max(tc['hits'] + tc['misses'], 1):.4f}), promotions "
         f"{tc['promotions']}, demotions {tc['demotions']}, dirty writebacks "
         f"{tc['dirty_writebacks']}, spills {tc['spills']}; hot set "
@@ -944,7 +1329,7 @@ def main(argv=None) -> int:
         f"{t_stats['windows']}, fused_window launches {tier_launches}; views "
         f"published {pub.version}, "
         f"{int(reg['counters']['serve.view_publish_bytes_total'])} bytes to the "
-        f"device; table bit-identical to [main]'s untiered fused table: {same}")
+        f"device; table bit-identical to the untiered fused prefix: {same}")
     if tier_launches == 0 or tier_launches != t_stats["windows"]:
         raise AssertionError(
             f"the tiered run launched fused_window {tier_launches} times for "
@@ -982,24 +1367,23 @@ def main(argv=None) -> int:
     # -- 9. the command line ------------------------------------------------
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        path = os.path.join(tmp, "stream.npz")
-        save_stream_npz(path, stream)
+        pre_path = os.path.join(tmp, "prefix.npz")
+        save_stream_npz(pre_path, pre)
         fw.launches = 0
-        got = run_cli(cli, "rate", "--csv", path, "--kernel", "fused")
+        got = run_cli(cli, "rate", "--csv", pre_path, "--kernel", "fused")
         c_launches = fw.launches
         if c_launches == 0:
             raise AssertionError("cli rate never launched fused_window")
-        if (got["players_rated"], got["mean_mu"]) != (main_rated, main_mean_mu):
+        if (got["players_rated"], got["mean_mu"]) != (pre_rated, pre_mean_mu):
             raise AssertionError(
                 f"cli rate: players_rated {got['players_rated']}, mean_mu "
-                f"{got['mean_mu']}; the main path: {main_rated}, {main_mean_mu}"
+                f"{got['mean_mu']}; rate_history on the prefix: {pre_rated}, "
+                f"{pre_mean_mu}"
             )
-        log(f"[cli] streamed rate agrees with the main path: players_rated "
-            f"{main_rated}, mean_mu {main_mean_mu}; fused_window launches {c_launches}")
+        log(f"[cli] streamed rate of the first {pre.n_matches} matches agrees with "
+            f"rate_history on the prefix: players_rated {pre_rated}, mean_mu "
+            f"{pre_mean_mu}; fused_window launches {c_launches}")
 
-        pre = stream.slice(0, min(CLI_PREFIX_MATCHES, stream.n_matches))
-        pre_path = os.path.join(tmp, "prefix.npz")
-        save_stream_npz(pre_path, pre)
         pre_steps = pack_schedule(
             pre, pad_row=int(pre.player_idx.max()) + 1, windowed=True
         ).n_steps
@@ -1044,7 +1428,15 @@ def main(argv=None) -> int:
     # -- 11. the object API -------------------------------------------------
     rater_phase(dev, cfg)
 
-    # -- 12. kernel times at the main path's shapes (collect off) -------------
+    # -- 12-13. the DB round trip and the service loop ----------------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_db_")
+    try:
+        db_counts = db_phase(cli, tmp, dev, args.db_matches)
+        worker_counts = worker_phase(cli, tmp, dev, args.worker_matches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- 14. kernel times at the main path's shapes (collect off) -------------
     slope = window_timing.measure(windows)
     for n, r in slope["by_steps"].items():
         log(f"[timing] fused_window, first {n:2d} steps of each window looped: "
@@ -1084,6 +1476,8 @@ def main(argv=None) -> int:
             "replaces": "analyzer_tpu/core/fused.py:129",
             "launches": launches,
             "launches_tiered": tier_launches,
+            "launches_db": db_counts["launches_db"],
+            "launches_worker_cli": worker_counts["launches_worker_cli"],
             "max_abs_err": worst_abs,
             "ms": ms,
             "plain_ms": plain_ms,

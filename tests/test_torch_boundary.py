@@ -46,14 +46,20 @@ def test_import_leaves_jax_and_reference_out():
         "             'kernels.row_scatter', 'rater', 'logging_utils',\n"
         "             'sched.tier', 'serve', 'serve.view', 'serve.engine',\n"
         "             'serve.oracle', 'serve.server', 'obs', 'obs.registry',\n"
-        "             'obs.tracer', 'obs.httpd'):\n"
+        "             'obs.tracer', 'obs.httpd', 'fixtures', 'io.dbgen',\n"
+        "             'service', 'service.store', 'service.broker',\n"
+        "             'service.sql_store', 'service._native_sql',\n"
+        "             'service.encode', 'service.columnar',\n"
+        "             'service.worker', 'service.pipeline',\n"
+        "             'experiments.service_bench'):\n"
         "    assert 'analyzer_tpu_torch.' + name in sys.modules, name\n"
         # importing builds nothing, starts no thread and parses no argv
         "import threading\n"
         "from analyzer_tpu_torch.kernels import fused_window, row_scatter\n"
         "from analyzer_tpu_torch.sched import _native\n"
+        "from analyzer_tpu_torch.service import _native_sql\n"
         "assert fused_window._lib is None and row_scatter._lib is None\n"
-        "assert _native._lib is None\n"
+        "assert _native._lib is None and _native_sql._lib is None\n"
         "assert threading.active_count() == 1, threading.enumerate()\n"
     )
     proc = subprocess.run(

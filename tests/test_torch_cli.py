@@ -278,7 +278,10 @@ class TestRate:
 
     def test_missing_csv(self, capsys):
         assert main(["rate", "--device", "cpu"]) == 2
-        assert "--csv is required" in capsys.readouterr().err
+        ours = capsys.readouterr().err.strip()
+        assert jax_main(["rate"]) == 2
+        assert ours == capsys.readouterr().err.strip()
+        assert "exactly one of --csv / --db is required" in ours
 
     def test_no_card_is_refused_not_run_on_cpu(self, tmp_path, capsys):
         import torch
@@ -466,7 +469,7 @@ class TestServeAndQuery:
         (("--checkpoint", "a.npz", "--db", "sqlite:///x.db"),
          "exactly one of --checkpoint / --db is required"),
         (("--checkpoint", "a.npz", "--shards", "0"), "--shards must be >= 1"),
-        (("--db", "sqlite:///x.db"), "ROADMAP A10"),
+        (("--db", "sqlite:///x.db", "--shards", "2"), "ROADMAP A11b"),
         (("--checkpoint", "a.npz", "--shards", "2"), "ROADMAP A11b"),
     ])
     def test_serve_refusals(self, capsys, argv, text):

@@ -424,3 +424,67 @@ def test_views_on_cuda_are_immutable_under_a_publishing_writer(cuda):
             for e in r["ratings"]:
                 mu = host[int(e["id"]), 0]
                 assert (e["mu"] is None and np.isnan(mu)) or e["mu"] == float(mu)
+
+
+def test_pipelined_worker_equals_sequential_on_the_card(cuda, tmp_path, monkeypatch):
+    """The service loop on the card: the pipelined Worker (chain patch on
+    the device, outputs copied asynchronously into pinned memory and waited
+    on by CUDA event in the writer thread) commits the same rows as the
+    sequential Worker, and every batch's final table — pad row included —
+    is bit-identical. Each copy is queued behind a few hundred ms of
+    device work, so the writer really has to wait on its event."""
+    import sqlite3
+
+    from analyzer_tpu_torch.config import ServiceConfig
+    from analyzer_tpu_torch.io.dbgen import write_history_db
+    from analyzer_tpu_torch.sched.runner import _Fetch
+    from analyzer_tpu_torch.service import InMemoryBroker, SqlStore, Worker
+    from analyzer_tpu_torch.service import pipeline
+
+    class Recorder(Worker):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, device=cuda, **kw)
+            self.view_publisher = object()
+            self.tables = []
+
+        def _publish_view(self, enc, table):
+            self.tables.append(table.cpu().numpy().copy())
+
+    late = []
+
+    class DelayedFetch(_Fetch):
+        def __init__(self, ys):
+            big = torch.randn(4096, 4096, device=ys.device)
+            for _ in range(8):
+                big = big @ big * 1e-4
+            super().__init__(ys)
+            late.append(not self._event.query())
+
+    monkeypatch.setattr(pipeline, "_Fetch", DelayedFetch)
+
+    def run(pipelined):
+        path = str(tmp_path / f"h_{pipelined}.db")
+        players = synthetic_players(30, seed=2)
+        write_history_db(path, synthetic_stream(200, players, seed=2), players)
+        broker = InMemoryBroker()
+        cfg = ServiceConfig(batch_size=20, idle_timeout=0.0, pipeline_lag=3)
+        w = Recorder(broker, SqlStore(f"sqlite:///{path}"), cfg, CFG,
+                     pipeline=pipelined)
+        for i in range(200):
+            broker.publish(cfg.queue, f"m{i:09d}".encode())
+        while w.poll():
+            pass
+        w.drain()
+        w.close()
+        assert broker.qsize(cfg.failed_queue) == 0 and not broker._unacked
+        conn = sqlite3.connect(path)
+        rows = [conn.execute(f'SELECT * FROM "{t}" ORDER BY api_id').fetchall()
+                for t in ("player", "participant", "participant_items", "match")]
+        conn.close()
+        return rows, w.tables
+
+    (ra, ta), (rb, tb) = run(False), run(True)
+    assert any(late), "no copy was still in flight at dispatch"
+    assert ra == rb
+    assert len(ta) == len(tb) == 10
+    assert all(x.tobytes() == y.tobytes() for x, y in zip(ta, tb))
