@@ -1,5 +1,5 @@
 """Command-line interface of the port: ``python -m analyzer_tpu_torch.cli
-synth | rate | serve | query | worker``.
+synth | rate | serve | query | worker | metrics | trace | profile``.
 
 Counterparts of the same subcommands of ``analyzer_tpu.cli``, with the JAX
 package's flags, defaults, error texts (exit 2) and JSON lines.
@@ -33,21 +33,26 @@ request against such an endpoint.
 ``worker`` is the broker-consuming service loop (needs pika and a
 RabbitMQ; ``--requeue-failed`` redrives the dead-letter queue).
 
+``rate --trace DIR`` captures a ``torch.profiler`` trace of the rating
+phase (``cli profile DIR`` attributes it), ``--metrics-out PATH`` writes
+the telemetry snapshot after a successful run and ``--trace-events PATH``
+the span ring as Chrome trace-event JSONL. ``metrics`` renders a snapshot
+(JSON, Prometheus text or a summary), ``trace`` reconstructs batch
+timelines from a trace-events export, and ``profile`` attributes a
+capture directory's device time per kernel; each has the JAX package's
+flags, exit codes and JSON.
+
 ``rate``, ``serve`` and ``worker`` run on the card (``--device cuda``, the
 default) and refuse to start where there is none; ``--device cpu`` runs
 them on the CPU. Not ported yet, each exiting 2 with its ROADMAP item:
-``synth --telemetry`` (A12), ``serve --shards N>1`` and ``worker
---serve-shards N>1`` (A11b), ``worker --obs-port/--flight-dir/
---profile-dir/--audit`` (A16). The JAX ``rate`` flags ``--mesh``,
-``--trace``, ``--metrics-out``, ``--trace-events`` and ``--obs-port``
-(ROADMAP A14, A16) are not offered.
+``synth --telemetry`` (A12), ``rate --mesh`` (A14), ``rate --obs-port``
+and ``worker --obs-port/--flight-dir/--audit`` (A16b, the live obs
+planes), ``serve --shards N>1`` and ``worker --serve-shards N>1`` (A11b).
 """
 
 from __future__ import annotations
 
 import argparse
-import collections
-import contextlib
 import json
 import os
 import sys
@@ -56,24 +61,11 @@ import types
 
 import numpy as np
 
+from analyzer_tpu_torch.utils.profiling import PhaseTimer, trace
 
-class PhaseTimer:
-    """Accumulating wall-clock phase timer: ``with t.phase("pack"): ...``,
-    then ``t.report()`` maps phase -> seconds."""
-
-    def __init__(self) -> None:
-        self.totals: dict = collections.defaultdict(float)
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-
-    def report(self) -> dict:
-        return dict(self.totals)
+#: ROADMAP items the refused flags wait for.
+A14 = "ROADMAP A14, parallel"
+A16B = "ROADMAP A16b, the live obs planes"
 
 
 def _load_stream(path: str):
@@ -224,7 +216,7 @@ def _rate_streamed(args, cfg, timer, state, stream, cursor, n_players,
     from analyzer_tpu_torch.sched import rate_stream
 
     stats: dict = {}
-    with timer.phase("rate"):
+    with timer.phase("rate"), trace(args.trace):
         state, _ = rate_stream(
             state, stream.slice(cursor, stream.n_matches), cfg,
             stats_out=stats, prefetch_depth=args.prefetch_depth,
@@ -262,10 +254,18 @@ def _validate_rate(args) -> bool:
         # Silently writing nothing would defeat the flag; --stop-after-steps
         # alone stays legal as a bounded smoke run (stats only).
         return fail("--checkpoint-every requires --checkpoint")
+    if args.mesh is not None and args.mesh < 0:
+        return fail("--mesh must be >= 0 (0 = all devices)")
+    if args.mesh is not None and args.kernel == "fused":
+        return fail("--kernel fused is not supported with --mesh yet; "
+                    "drop --mesh or use --kernel reference")
     if args.fuse_window is not None and args.fuse_window <= 0:
         return fail("--fuse-window must be positive")
     if args.hot_rows < 0:
         return fail("--hot-rows must be >= 0 (0 = untiered)")
+    if args.mesh is not None and args.hot_rows:
+        return fail("--hot-rows is not supported with --mesh yet; "
+                    "drop --mesh or --hot-rows")
     # Exactly one source; empty strings count as missing (``--db ""`` must
     # not slip past the xor and crash in the loader).
     args.csv = args.csv or None
@@ -281,6 +281,9 @@ def _validate_rate(args) -> bool:
             "--db-write requires a finished run (drop --stop-after-steps, "
             "or resume to completion and write then)"
         )
+    if args.mesh is not None:
+        return fail(f"rate --mesh is not ported yet ({A14}); drop --mesh "
+                    "to rate on one card")
     return True
 
 
@@ -299,7 +302,46 @@ def _resolve_device(args, verb: str):
         return None
 
 
+def _obs_begin(args) -> bool:
+    """Checks a run's telemetry flags before it starts. The JAX package
+    arms its compile listeners here (nothing in the port compiles) and
+    starts obsd for ``--obs-port``, which waits for ROADMAP A16b: that
+    flag is refused. Prints the refusal and returns False."""
+    if getattr(args, "obs_port", None) is not None:
+        print(f"error: --obs-port is not ported yet ({A16B}); use "
+              "--metrics-out / --trace-events for this run's telemetry",
+              file=sys.stderr)
+        return False
+    return True
+
+
+def _obs_write(args) -> None:
+    """Writes the snapshot/trace artifacts a run asked for."""
+    if getattr(args, "metrics_out", None):
+        from analyzer_tpu_torch.obs import write_snapshot
+
+        write_snapshot(args.metrics_out)
+        print(f"wrote metrics snapshot to {args.metrics_out}", file=sys.stderr)
+    if getattr(args, "trace_events", None):
+        from analyzer_tpu_torch.obs import write_chrome_trace
+
+        n = write_chrome_trace(args.trace_events)
+        print(
+            f"wrote {n} Chrome trace events to {args.trace_events} "
+            "(open in Perfetto)", file=sys.stderr,
+        )
+
+
 def cmd_rate(args) -> int:
+    if not _obs_begin(args):
+        return 2
+    rc = _cmd_rate_impl(args)
+    if rc == 0:
+        _obs_write(args)
+    return rc
+
+
+def _cmd_rate_impl(args) -> int:
     from analyzer_tpu_torch.config import RatingConfig
     from analyzer_tpu_torch.core.state import PlayerState
     from analyzer_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
@@ -358,7 +400,7 @@ def cmd_rate(args) -> int:
                 or args.stop_after_steps >= sched.n_steps)
     on_chunk, ck_close = _checkpoint_hook(args, sched, cursor, start_step, finished)
     try:
-        with timer.phase("rate"):
+        with timer.phase("rate"), trace(args.trace):
             state, _ = rate_history(
                 state, sched, cfg,
                 start_step=start_step,
@@ -496,20 +538,184 @@ def cmd_query(args) -> int:
     return 0
 
 
+def cmd_metrics(args) -> int:
+    """Renders a telemetry snapshot: a saved ``--metrics-out`` artifact
+    (of either package) when a path is given, else the live registry of
+    THIS process (mostly the declared schema — the metric catalog)."""
+    from analyzer_tpu_torch.obs import prometheus_text, render_summary, snapshot
+
+    if args.snapshot:
+        try:
+            with open(args.snapshot, encoding="utf-8") as f:
+                snap = json.load(f)
+        except (OSError, ValueError) as err:
+            print(f"error: cannot read snapshot: {err}", file=sys.stderr)
+            return 2
+    else:
+        snap = snapshot()
+    if args.format == "prom":
+        sys.stdout.write(prometheus_text(snap))
+    elif args.format == "summary":
+        sys.stdout.write(render_summary(snap))
+    else:
+        json.dump(snap, sys.stdout, indent=1, sort_keys=True)
+        sys.stdout.write("\n")
+    return 0
+
+
+def cmd_trace(args) -> int:
+    """Trace analyzer (obs/traceview.py): per-match / per-batch timelines
+    from a trace-events JSONL (``--trace-events``) or a flight-recorder
+    dump directory, with the stage decomposition and a critical-path
+    report naming the dominant stage; several artifacts stitch into one
+    cross-process forest. Needs an export with causal-trace events
+    (``batch.assemble`` / ``trace.enqueue``: a worker's, with tracing on —
+    ``ANALYZER_TPU_TRACE=1``); a ``rate`` run's export has none and exits
+    2, as the JAX package's does."""
+    from analyzer_tpu_torch.obs.traceview import (
+        batch_report,
+        build_model,
+        critical_path,
+        load_events,
+        load_forest,
+        match_report,
+        render_batch,
+        render_critical_path,
+        render_match,
+        verify_chain,
+    )
+
+    try:
+        if len(args.artifact) == 1:
+            events = load_events(args.artifact[0])
+        else:
+            events = load_forest(args.artifact)
+    except (OSError, ValueError) as err:
+        print(f"error: {err}", file=sys.stderr)
+        return 2
+    model = build_model(events)
+    if not model.batches and not model.enqueue_ts:
+        print(
+            "error: no causal-trace events in the artifact — was the "
+            "capture taken with tracing enabled (a worker run with "
+            "ANALYZER_TPU_TRACE=1)? A rate run's export has none",
+            file=sys.stderr,
+        )
+        return 2
+    if args.match:
+        report = match_report(model, args.match)
+        if report is None:
+            print(f"error: match {args.match!r} not in this trace",
+                  file=sys.stderr)
+            return 1
+        problems = verify_chain(model, args.match)
+        if args.json:
+            report = dict(report, problems=problems)
+            json.dump(report, sys.stdout, indent=1, sort_keys=True)
+            sys.stdout.write("\n")
+        else:
+            sys.stdout.write(render_match(report))
+            for p in problems:
+                print(f"  incomplete: {p}")
+        return 0
+    if args.batch:
+        bt = model.batches.get(args.batch)
+        if bt is None:
+            print(f"error: batch {args.batch!r} not in this trace",
+                  file=sys.stderr)
+            return 1
+        report = batch_report(bt)
+        if args.json:
+            json.dump(report, sys.stdout, indent=1, sort_keys=True)
+            sys.stdout.write("\n")
+        else:
+            sys.stdout.write(render_batch(report))
+        return 0
+    cp = critical_path(model, window=args.window or None)
+    decomp = None
+    if args.profile:
+        # Join a capture dir's device trace against this host-side forest:
+        # the critical path's `dispatch` stage decomposes into
+        # device-execute / device-idle / host-overhead (obs/profview).
+        from analyzer_tpu_torch.obs.profview import (
+            analyze_capture,
+            decompose_dispatch,
+            render_decomposition,
+        )
+
+        att = analyze_capture(args.profile, update_metrics=False)
+        decomp = decompose_dispatch(model, att)
+        if decomp is None:
+            print(
+                f"note: profile {args.profile} did not join this trace "
+                f"(parsed={str(bool(att.get('parsed'))).lower()})",
+                file=sys.stderr,
+            )
+    if args.json:
+        if decomp is not None:
+            cp = dict(cp, dispatch_decomposition=decomp)
+        json.dump(cp, sys.stdout, indent=1, sort_keys=True)
+        sys.stdout.write("\n")
+    else:
+        sys.stdout.write(render_critical_path(cp))
+        if decomp is not None:
+            sys.stdout.write(render_decomposition(decomp))
+    return 0
+
+
+def cmd_profile(args) -> int:
+    """Profile attribution (obs/profview.py): reads a device-profiler
+    capture dir (``rate --trace DIR``, or a ``worker --profile-dir``
+    window's ``profile-<ts>-<reason>-<pid>/``), bins its device trace into
+    a per-kernel device-time table and reports the busy/idle and
+    compile/execute splits. A torn or missing trace reports ``parsed:
+    false`` (exit 1) rather than crashing. With ``--trace-events``, also
+    joins the capture against the host-side causal-trace forest and
+    decomposes the ``dispatch`` stage."""
+    from analyzer_tpu_torch.obs.profview import (
+        analyze_capture,
+        decompose_dispatch,
+        render_attribution,
+        render_decomposition,
+    )
+
+    att = analyze_capture(args.capture_dir, update_metrics=False)
+    decomp = None
+    if args.trace_events:
+        from analyzer_tpu_torch.obs.traceview import build_model, load_forest
+
+        try:
+            model = build_model(load_forest(args.trace_events))
+        except (OSError, ValueError) as err:
+            print(f"error: {err}", file=sys.stderr)
+            return 2
+        decomp = decompose_dispatch(model, att)
+    if args.json:
+        out = dict(att)
+        if decomp is not None:
+            out["dispatch_decomposition"] = decomp
+        json.dump(out, sys.stdout, indent=1, sort_keys=True)
+        sys.stdout.write("\n")
+    else:
+        sys.stdout.write(render_attribution(att))
+        if decomp is not None:
+            sys.stdout.write(render_decomposition(decomp))
+    return 0 if att["parsed"] else 1
+
+
 def cmd_worker(args) -> int:
     """The broker-consuming service loop (``service.worker.main``), or with
     ``--requeue-failed`` the dead-letter redrive. Both need pika and a
     RabbitMQ."""
-    from analyzer_tpu_torch.service.worker import A11B, A16
+    from analyzer_tpu_torch.service.worker import A11B
 
     refused = [flag for flag, on in (
         ("--obs-port", args.obs_port is not None),
         ("--flight-dir", args.flight_dir is not None),
-        ("--profile-dir", args.profile_dir is not None),
         ("--audit", args.audit),
     ) if on]
     if refused:
-        print(f"error: worker {' '.join(refused)} is not ported yet ({A16})",
+        print(f"error: worker {' '.join(refused)} is not ported yet ({A16B})",
               file=sys.stderr)
         return 2
     if args.serve_shards is not None and args.serve_shards > 1:
@@ -540,7 +746,7 @@ def cmd_worker(args) -> int:
     from analyzer_tpu_torch.service.worker import main as worker_main
 
     worker_main(serve_port=args.serve_port, serve_shards=args.serve_shards,
-                device=device)
+                profile_dir=args.profile_dir, device=device)
     return 0
 
 
@@ -631,6 +837,31 @@ def build_parser() -> argparse.ArgumentParser:
         "size (sched/tier.py)",
     )
     s.add_argument(
+        "--trace", metavar="DIR",
+        help="torch.profiler trace of the rating phase (CPU + CUDA "
+        "activities) into DIR, in the layout `cli profile DIR` reads",
+    )
+    s.add_argument(
+        "--metrics-out", metavar="PATH",
+        help="write the runtime telemetry snapshot (counters/gauges/"
+        "histograms, batch and feed spans) as JSON after a successful run",
+    )
+    s.add_argument(
+        "--trace-events", metavar="PATH",
+        help="write the span ring as Chrome trace-event JSONL "
+        "(Perfetto-loadable, alongside --trace's capture)",
+    )
+    s.add_argument(
+        "--mesh", type=int, metavar="N",
+        help="data-parallel re-rate over N devices (not ported yet: "
+        "ROADMAP A14)",
+    )
+    s.add_argument(
+        "--obs-port", type=int, metavar="PORT",
+        help="live introspection endpoints for the run (not ported yet: "
+        "ROADMAP A16b)",
+    )
+    s.add_argument(
         "--device", default="cuda",
         help="where to rate: cuda (default; refuses to start without a "
         "card) or cpu",
@@ -704,11 +935,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     s.add_argument(
         "--obs-port", type=int, metavar="PORT",
-        help="obsd (not ported yet: ROADMAP A16)",
+        help="obsd (not ported yet: ROADMAP A16b)",
     )
     s.add_argument(
         "--flight-dir", metavar="DIR",
-        help="flight-recorder dumps (not ported yet: ROADMAP A16)",
+        help="flight-recorder dumps (not ported yet: ROADMAP A16b)",
     )
     s.add_argument(
         "--serve-port", type=int, metavar="PORT",
@@ -724,15 +955,18 @@ def build_parser() -> argparse.ArgumentParser:
     )
     s.add_argument(
         "--profile-dir", metavar="DIR",
-        help="device capture windows (not ported yet: ROADMAP A16)",
+        help="arm on-demand torch.profiler capture windows into DIR (also "
+        "ANALYZER_TPU_PROFILE_DIR): SIGUSR2 captures the next batch's "
+        "dispatch; dead-letters and pipeline degradation capture "
+        "automatically (throttled); `cli profile` attributes a capture",
     )
     s.add_argument(
         "--audit", action="store_true",
-        help="shadow audit of served queries (not ported yet: ROADMAP A16)",
+        help="shadow audit of served queries (not ported yet: ROADMAP A16b)",
     )
     s.add_argument(
         "--no-slo-plane", action="store_true",
-        help="accepted for parity: the SLO plane is off until ROADMAP A16",
+        help="accepted for parity: the SLO plane is off until ROADMAP A16b",
     )
     s.add_argument(
         "--device", default="cuda",
@@ -740,6 +974,76 @@ def build_parser() -> argparse.ArgumentParser:
         "without a card) or cpu",
     )
     s.set_defaults(fn=cmd_worker)
+
+    s = sub.add_parser(
+        "metrics",
+        help="render a runtime telemetry snapshot",
+    )
+    s.add_argument(
+        "snapshot", nargs="?",
+        help="a --metrics-out JSON artifact; omitted = this process's "
+        "live registry (the declared metric catalog)",
+    )
+    s.add_argument(
+        "--format", choices=("json", "prom", "summary"), default="json",
+        help="json (default), prom (Prometheus text exposition), or "
+        "summary (human digest)",
+    )
+    s.set_defaults(fn=cmd_metrics)
+
+    s = sub.add_parser(
+        "trace",
+        help="reconstruct per-match/per-batch causal timelines from a "
+        "trace-events JSONL or a flight-recorder dump",
+    )
+    s.add_argument(
+        "artifact", nargs="+",
+        help="a --trace-events JSONL export, or a flight-recorder dump "
+        "directory (its trace.jsonl is used); several stitch into one "
+        "cross-process trace forest",
+    )
+    s.add_argument(
+        "--match", metavar="ID",
+        help="one match's journey: queue wait + its batch's stage "
+        "decomposition + the view version that served it",
+    )
+    s.add_argument(
+        "--batch", metavar="ID",
+        help="one batch's stage decomposition (ids look like b17; "
+        "`--match` prints the owning batch id)",
+    )
+    s.add_argument(
+        "--window", type=int, default=0, metavar="N",
+        help="restrict the critical-path report to the last N batches "
+        "(default: all)",
+    )
+    s.add_argument(
+        "--profile", metavar="DIR",
+        help="a device-profiler capture dir: joins its attribution against "
+        "this host trace and decomposes the `dispatch` stage into "
+        "device-execute / device-idle / host-overhead",
+    )
+    s.add_argument("--json", action="store_true", help="JSON output")
+    s.set_defaults(fn=cmd_trace)
+
+    s = sub.add_parser(
+        "profile",
+        help="attribute a device-profiler capture dir: per-kernel device "
+        "time, busy/idle and compile/execute splits",
+    )
+    s.add_argument(
+        "capture_dir",
+        help="a capture directory (`rate --trace DIR`, or a "
+        "profile-<ts>-<reason>-<pid>/ window of `worker --profile-dir`)",
+    )
+    s.add_argument(
+        "--trace-events", nargs="+", metavar="ARTIFACT", default=[],
+        help="host-side trace artifacts (JSONL exports or flight-dump "
+        "dirs): join the capture against the causal-trace forest and "
+        "decompose the dispatch stage",
+    )
+    s.add_argument("--json", action="store_true", help="JSON output")
+    s.set_defaults(fn=cmd_profile)
     return p
 
 

@@ -134,19 +134,29 @@ def build_sqlite_store(pristine: str, n_matches: int, n_players: int,
 
 
 def run_loop(worker: Worker, broker: InMemoryBroker, ids: list,
-             queue: str) -> dict:
+             queue: str, capture_at=()) -> dict:
     """Publishes every id, polls until the queue is empty, drains the
-    pipelined tail. Returns seconds, batches and matches/s."""
+    pipelined tail. Returns seconds, batches and matches/s, and the
+    ``perf_counter`` times of the first poll's start and the last poll's
+    end (``polls_from`` / ``polls_to``: the drain comes after).
+    ``capture_at``: the batch ordinals before which the worker's device
+    profiler is asked for a capture of that batch's dispatch."""
     for mid in ids:
         broker.publish(queue, mid.encode() if isinstance(mid, str) else mid)
     t0 = time.perf_counter()
     batches = 0
-    while worker.poll():
+    while True:
+        if batches in capture_at:
+            worker.profiler.request("bench", force=True)
+        if not worker.poll():
+            break
         batches += 1
+    polls_to = time.perf_counter()
     worker.drain()  # pipelined mode: include the in-flight tail's commits
     dt = time.perf_counter() - t0
     return {"seconds": dt, "batches": batches,
-            "matches_per_s": len(ids) / dt if dt > 0 else None}
+            "matches_per_s": len(ids) / dt if dt > 0 else None,
+            "polls_from": t0, "polls_to": polls_to}
 
 
 def main(argv=None) -> int:

@@ -1,23 +1,64 @@
-"""Runtime telemetry of the port: metrics registry and span tracer.
+"""Runtime telemetry of the port: metrics, spans, snapshots, device time.
 
-Own copies of the two stdlib-only cores of ``analyzer_tpu.obs``:
+Own copies of the stdlib-only modules of ``analyzer_tpu.obs`` the rating
+path needs:
 
   * :mod:`~analyzer_tpu_torch.obs.registry` — process-wide counters, gauges
     and histograms with quantile summaries and a JSON snapshot;
   * :mod:`~analyzer_tpu_torch.obs.tracer` — span tracing into a bounded
     ring, exported as Chrome trace-event JSONL;
+  * :mod:`~analyzer_tpu_torch.obs.snapshot` — the one-file JSON artifact
+    (``cli rate --metrics-out``) and its Prometheus / summary renderings;
+  * :mod:`~analyzer_tpu_torch.obs.tracectx` — causal trace context: the
+    worker's ``batch.assemble`` join and the trace id bound to every span
+    of a batch (on with ``ANALYZER_TPU_TRACE=1``);
+  * :mod:`~analyzer_tpu_torch.obs.traceview` — the trace analyzer behind
+    ``cli trace``;
+  * :mod:`~analyzer_tpu_torch.obs.hw` — the peak table (with the H100)
+    and the per-dispatch bytes/flops cost model;
+  * :mod:`~analyzer_tpu_torch.obs.httpd` — the route-table HTTP plumbing
+    the serve plane listens through;
 
-plus :mod:`~analyzer_tpu_torch.obs.httpd`, the route-table HTTP plumbing
-the serve plane listens through. ``analyzer_tpu.obs.retrace.track_jit``
-has no counterpart here: it counts a jitted entry point's recompiles, and
-nothing in the port is jitted — every device function is eager PyTorch or
-a kernel built once.
+and the device-aware ones, rebuilt on PyTorch:
+
+  * :mod:`~analyzer_tpu_torch.obs.devicemem` — device-memory gauges from
+    ``torch.cuda.memory_stats`` at chunk boundaries;
+  * :mod:`~analyzer_tpu_torch.obs.prof` — opt-in ``torch.profiler``
+    capture windows (the worker's ``profile_dir``);
+  * :mod:`~analyzer_tpu_torch.obs.profview` — per-kernel device time,
+    busy/idle split and the host-trace join of a capture
+    (``cli profile``).
+
+No counterpart: ``analyzer_tpu.obs.retrace`` (``track_jit``,
+``install_jax_hooks``) counts a jitted entry point's recompiles, and
+nothing in the port is jitted — every device function is eager PyTorch
+or a kernel built once — so the snapshot's ``retraces`` block stays
+empty. Still to port (ROADMAP): the live planes of A16b — ``server``
+(obsd), ``history``, ``slo``, ``quality``, ``flight``, ``audit`` and
+``federate`` — and the offline tools of A16c, ``benchdiff`` and
+``advisor``.
 """
 
+from analyzer_tpu_torch.obs.devicemem import (
+    maybe_sample as maybe_sample_device_memory,
+    sample_device_memory,
+)
+from analyzer_tpu_torch.obs.prof import (
+    DeviceProfiler,
+    get_device_profiler,
+    reset_device_profiler,
+)
 from analyzer_tpu_torch.obs.registry import (
     MetricsRegistry,
     get_registry,
     reset_registry,
+)
+from analyzer_tpu_torch.obs.snapshot import (
+    prometheus_text,
+    render_summary,
+    snapshot,
+    write_chrome_trace,
+    write_snapshot,
 )
 from analyzer_tpu_torch.obs.tracer import (
     Tracer,
@@ -30,14 +71,24 @@ from analyzer_tpu_torch.obs.tracer import (
 )
 
 __all__ = [
+    "DeviceProfiler",
     "MetricsRegistry",
     "Tracer",
     "bind_trace",
     "current_trace",
+    "get_device_profiler",
     "get_registry",
     "get_tracer",
     "instant",
+    "maybe_sample_device_memory",
+    "prometheus_text",
+    "render_summary",
+    "reset_device_profiler",
     "reset_registry",
     "reset_tracer",
+    "sample_device_memory",
+    "snapshot",
     "span",
+    "write_chrome_trace",
+    "write_snapshot",
 ]

@@ -6,7 +6,10 @@ pre-declared schema cut to the families the port emits — the tiered
 table's ``tier.*``, the serve plane's ``serve.*`` (integer counters that
 the parity tests hold equal to the JAX package's on the same schedule),
 the service shell's ``worker.*`` and ``broker.*`` under the JAX names, and
-the SQL store's native-scanner counters ``sql.*`` (the port's own). The
+the SQL store's native-scanner counters ``sql.*`` (the port's own), and
+the rating path's ``sched.*``, ``feed.*``, ``device.*``, ``profile.*`` and
+``phase_seconds`` families (the runners, the prefetching feed, the
+device-memory sampler, the profile attribution, ``utils.profiling``). The
 JAX package has no ``pipeline.*`` series: its pipelined engine reports
 through the ``worker.pipeline_*`` gauges, and so does the port's.
 
@@ -221,6 +224,22 @@ STANDARD_COUNTERS = (
     # scanner reads nonzero scans and zero fallbacks.
     "sql.native_scans_total",
     "sql.native_fallbacks_total",
+    # The schedule and its runners (sched/superstep.py, sched/runner.py):
+    # slots filled with the pad row, and supersteps dispatched.
+    # sched.pad_steps_total counts the JAX package's step bucketing
+    # (``pad_to_steps``), which the port does not do: it stays 0 here.
+    "sched.pad_steps_total",
+    "sched.pad_slots_total",
+    "sched.steps_total",
+    # The prefetching feed (sched/feed.py): starved = the consumer outran
+    # the feed (host-bound), backpressure = the feed outran the consumer.
+    # Pre-declared so "feed never starved" reads as 0, not as a missing
+    # series.
+    "feed.starved_total",
+    "feed.backpressure_total",
+    # Profile attribution (obs/profview.py): capture dirs whose device
+    # trace parsed end to end.
+    "profile.captures_parsed_total",
 )
 STANDARD_GAUGES = (
     # The tiered table's two budget gauges: the hot-set capacity in rows
@@ -242,11 +261,24 @@ STANDARD_GAUGES = (
     # Ready depth of the consume queue (labeled broker.queue_depth{queue=}
     # series appear on first sample).
     "broker.queue_depth",
+    # Slot occupancy of the last rated schedule (sched/runner.py).
+    "sched.occupancy",
+    # Ring occupancy of the prefetching feed after the last put/get
+    # (sched/feed.py): steady 0 on a busy run = host-bound.
+    "feed.depth",
+    # Per-device series (device.hbm_bytes_in_use{device=...}) appear on
+    # first sample (obs/devicemem.py); the process total is pre-declared.
+    "device.live_buffers",
+    # Device-idle fraction of the last attributed capture window
+    # (obs/profview.py).
+    "profile.device_idle_frac",
 )
 
 #: Histogram families the runtime emits (labeled series like
 #: ``serve.microbatch_occupancy{kind=}`` count as one family).
 STANDARD_HISTOGRAMS = (
+    "phase_seconds",
+    "sched.pack_occupancy",
     "serve.microbatch_occupancy",
 )
 
@@ -262,12 +294,21 @@ SPAN_CATALOG = (
     "batch.fetch",
     "batch.write_back",
     "batch.commit",
+    # the prefetching feed: staging (producer thread) and the slab's copy
+    # to the device (the consumer thread in the port)
+    "feed.materialize",
+    "feed.transfer",
     # the tiered table's promotion/demotion traffic
     "tier.promote",
     "tier.demote",
     # worker instants
     "worker.dead_letter",
     "worker.pipeline_degraded",
+    # causal tracing (obs/tracectx.py): enqueue anchor, batch join,
+    # serve-visible publish
+    "trace.enqueue",
+    "batch.assemble",
+    "view.publish",
 )
 
 #: Distinct labeled series allowed per family (base metric name) before
@@ -328,6 +369,20 @@ SCHEMA_HELP = {
     "sql.native_scans_total": "queries served by the native sqlite scanner",
     "sql.native_fallbacks_total":
         "native sqlite scanner unavailable or failed: python scans instead",
+    "sched.pad_steps_total": "schedule steps added as padding",
+    "sched.pad_slots_total": "schedule slots filled with the pad row",
+    "sched.steps_total": "supersteps dispatched by the scan runners",
+    "sched.occupancy": "fraction of schedule slots carrying real matches",
+    "feed.starved_total": "consumer waits on an empty prefetch ring",
+    "feed.backpressure_total": "producer waits on a full prefetch ring",
+    "feed.depth": "prefetch-ring occupancy after the last put/get",
+    "device.live_buffers": "live device buffers (leak canary)",
+    "profile.captures_parsed_total":
+        "device-profile capture dirs attributed end-to-end",
+    "profile.device_idle_frac":
+        "device-idle fraction of the last attributed capture window",
+    "phase_seconds": "wall seconds per instrumented phase",
+    "sched.pack_occupancy": "per-schedule slot occupancy distribution",
 }
 
 

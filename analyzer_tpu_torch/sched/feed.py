@@ -20,6 +20,24 @@ Determinism: the producer stages chunks strictly in order on one thread,
 so the staged work — and with it the final table and the collected
 outputs — is the same at every depth; the ring changes when work is
 staged, never what.
+
+Telemetry, under the JAX package's names:
+
+  * ``feed.depth`` gauge — ring occupancy after the last put/get;
+  * ``feed.starved_total`` — the consumer found the ring empty and waited
+    (the feed is behind: host-bound staging);
+  * ``feed.backpressure_total`` — the producer found the ring full and
+    waited (the consumer is behind);
+  * ``feed.materialize`` span, one per chunk on the producer thread: the
+    chunk's whole staging — materialization, residency and tier planning,
+    the slab's packing into pinned memory;
+  * ``feed.transfer`` span, one per chunk, around the slab's copy to the
+    device. The JAX package issues that copy on the producer thread; here
+    the consumer issues it (see above), so the runner opens this span on
+    the consumer thread, outside ``batch.compute``, and the span's thread
+    id says so.
+
+The counters and spans are per chunk, never per match.
 """
 
 from __future__ import annotations
@@ -32,6 +50,8 @@ import numpy as np
 import torch
 
 from analyzer_tpu_torch.core import constants
+from analyzer_tpu_torch.obs import get_registry, get_tracer
+from analyzer_tpu_torch.obs.tracer import bind_trace, current_trace
 from analyzer_tpu_torch.sched.residency import plan_windows
 
 #: Default ring depth: one chunk being dispatched, one staged behind it.
@@ -69,22 +89,32 @@ class DeviceFeed:
         self._items: deque = deque()
         self._closed = False
         self._error: BaseException | None = None
+        reg = get_registry()
+        self._depth_gauge = reg.gauge("feed.depth")
+        self._starved = reg.counter("feed.starved_total")
+        self._backpressure = reg.counter("feed.backpressure_total")
 
     def put(self, item) -> None:
         with self._cond:
-            while len(self._items) >= self.depth and not self._closed:
-                self._cond.wait()
+            if len(self._items) >= self.depth and not self._closed:
+                self._backpressure.add(1)
+                while len(self._items) >= self.depth and not self._closed:
+                    self._cond.wait()
             if self._closed:
                 raise FeedClosedError("feed closed by the consumer")
             self._items.append(item)
+            self._depth_gauge.set(len(self._items))
             self._cond.notify_all()
 
     def get(self):
         with self._cond:
-            while not self._items and not self._closed:
-                self._cond.wait()
+            if not self._items and not self._closed:
+                self._starved.add(1)
+                while not self._items and not self._closed:
+                    self._cond.wait()
             if self._items:
                 item = self._items.popleft()
+                self._depth_gauge.set(len(self._items))
                 self._cond.notify_all()
                 return item
             if self._error is not None:
@@ -111,6 +141,10 @@ class Prefetcher:
         self, producer, depth: int = DEFAULT_DEPTH, name: str = "sched-feed"
     ) -> None:
         self.feed = DeviceFeed(depth)
+        # The producer stages chunks on behalf of whatever trace is bound
+        # on the constructing (consumer) thread, so its spans join that
+        # trace: captured here, re-bound in _run (None: nothing bound).
+        self._trace = current_trace()
         self._thread = threading.Thread(
             target=self._run, args=(producer,), name=name, daemon=True
         )
@@ -118,7 +152,8 @@ class Prefetcher:
 
     def _run(self, producer) -> None:
         try:
-            producer(self.feed.put)
+            with bind_trace(self._trace):
+                producer(self.feed.put)
         except FeedClosedError:
             pass  # the consumer aborted first; its exception is the story
         except BaseException as e:  # noqa: BLE001 — re-raised on the consumer
@@ -183,12 +218,13 @@ class Slab:
 
 def stage_chunk(sched, start: int, stop: int, pin: bool) -> Slab:
     """The reference runner's chunk of a packed schedule
-    (:func:`stage_window`)."""
+    (:func:`stage_window`), in one ``feed.materialize`` span."""
     check = getattr(sched, "check_compact_invariant", None)
     if check is not None:
         check(start, stop)
-    pidx, _mask, winner, mode_id, afk = sched.host_window(start, stop)
-    return stage_window(pidx, winner, mode_id, afk, pin)
+    with get_tracer().span("feed.materialize", cat="sched", start=start):
+        pidx, _mask, winner, mode_id, afk = sched.host_window(start, stop)
+        return stage_window(pidx, winner, mode_id, afk, pin)
 
 
 def stage_window(pidx, winner, mode_id, afk, pin: bool) -> Slab:
@@ -235,18 +271,20 @@ class FusedChunk:
 def stage_chunk_fused(sched, start: int, stop: int, fuse, collect: bool,
                       pin: bool, tier=None) -> FusedChunk:
     """Fused sibling of :func:`stage_chunk`: materializes the chunk and
-    residency-plans it into fused windows (:func:`stage_fused_windows`).
-    ``tier`` (a ``sched.tier.TierManager``) remaps each window into
-    hot-slot space and attaches its promotion/demotion plan."""
+    residency-plans it into fused windows (:func:`stage_fused_windows`),
+    in one ``feed.materialize`` span. ``tier`` (a
+    ``sched.tier.TierManager``) remaps each window into hot-slot space and
+    attaches its promotion/demotion plan."""
     check = getattr(sched, "check_compact_invariant", None)
     if check is not None:
         check(start, stop)
-    pidx, _mask, winner, mode_id, afk = sched.host_window(start, stop)
-    return stage_fused_windows(
-        pidx, winner, mode_id, afk, sched.pad_row, fuse,
-        match_idx=sched.match_idx[start:stop] if collect else None, pin=pin,
-        tier=tier,
-    )
+    with get_tracer().span("feed.materialize", cat="sched", start=start):
+        pidx, _mask, winner, mode_id, afk = sched.host_window(start, stop)
+        return stage_fused_windows(
+            pidx, winner, mode_id, afk, sched.pad_row, fuse,
+            match_idx=sched.match_idx[start:stop] if collect else None,
+            pin=pin, tier=tier,
+        )
 
 
 def _pad_window_steps(arr, k: int, fill):
@@ -270,7 +308,8 @@ def stage_fused_windows(
     into hot slots (the fused gather then reads through the hot set) and
     its ``TierPlan`` rides along, its promotions packed into the same slab
     — the runner caps the fused ``max_rows`` at the hot capacity, so every
-    fused window fits by construction."""
+    fused window fits by construction. Its callers run it inside their
+    chunk's ``feed.materialize`` span."""
     ratable = (mode_id >= 0) & ~afk
     valid = (pidx != pad_row) & ratable[:, :, None, None]
     plans = plan_windows(pidx, valid, pad_row, fuse.window, fuse.max_rows)

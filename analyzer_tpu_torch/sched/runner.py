@@ -22,6 +22,16 @@ The table is updated IN PLACE on one copy of the caller's state, made at
 entry (the JAX package donates its buffer chunk to chunk instead). Per-match
 outputs, when collected, come back one chunk behind the dispatch, so the
 device-to-host copy of chunk k-1 overlaps chunk k.
+
+Telemetry, under the JAX package's names and arguments: per chunk a
+``feed.materialize`` span on the producer thread (sched/feed.py), then on
+the consumer thread ``feed.transfer`` (the slab's copy to the device),
+``batch.compute`` (the chunk's launches, and with ``collect`` the start of
+its outputs' copy back: enqueue cost on the card) and, with ``collect``,
+``batch.fetch`` around the wait for the previous chunk's outputs — where
+device time surfaces on the host. Each run sets the ``sched.occupancy``
+gauge and adds its supersteps to ``sched.steps_total``; device memory is
+sampled (throttled) at chunk boundaries.
 """
 
 from __future__ import annotations
@@ -37,6 +47,11 @@ from analyzer_tpu_torch.config import RatingConfig
 from analyzer_tpu_torch.core.fused import fused_window_table
 from analyzer_tpu_torch.core.state import MAX_TEAM_SIZE, PlayerState
 from analyzer_tpu_torch.core.update import check_seed_cfg, pack_outputs, rate_step_
+from analyzer_tpu_torch.obs import (
+    get_registry,
+    get_tracer,
+    maybe_sample_device_memory,
+)
 from analyzer_tpu_torch.sched.feed import (
     DEFAULT_DEPTH,
     FeedStageError,
@@ -204,6 +219,9 @@ def rate_history(
     # state became the cold tier (one fetch at entry).
     state = tier.hot_state() if tier is not None else state.clone()
     pin = state.table.is_cuda
+    reg = get_registry()
+    reg.gauge("sched.occupancy").set(round(sched.occupancy, 4))
+    reg.counter("sched.steps_total").add(max(0, n_steps - start_step))
     starts = list(range(start_step, n_steps, steps_per_chunk))
 
     def produce(put) -> None:
@@ -224,7 +242,7 @@ def rate_history(
 
     state, outs, fused_flat, totals = _consume(
         produce, state, sched.pad_row, cfg, fuse, collect, on_chunk,
-        prefetch_depth, tier, view_publisher,
+        prefetch_depth, tier, view_publisher, end_step=lambda: n_steps,
     )
     if stats_out is not None and fuse is not None:
         stats_out.update(totals)
@@ -245,7 +263,7 @@ def _flat(fused_flat: list) -> np.ndarray:
 
 
 def _consume(produce, state, pad_row, cfg, fuse, collect, on_chunk, depth,
-             tier=None, view_publisher=None):
+             tier=None, view_publisher=None, end_step=None):
     """The consumer loop of both runners: dispatches every chunk that
     ``produce`` stages (on the Prefetcher's thread), in place on
     ``state.table`` — the hot table when ``tier`` is given — and publishes
@@ -253,7 +271,11 @@ def _consume(produce, state, pad_row, cfg, fuse, collect, on_chunk, depth,
     end (always). Returns ``(state, outs, fused_flat, totals)``: the final
     state (tiered: the logical full table, reconstructed), the chunks'
     packed outputs when collecting, the fused path's padded slot->match
-    rows (fused + collect, else None) and its planner totals."""
+    rows (fused + collect, else None) and its planner totals.
+    ``end_step()`` gives the ``start`` argument of the last
+    ``batch.fetch`` span, read at the end (the streamed schedule's length
+    is known only then)."""
+    tracer = get_tracer()
     table = state.table
     device = table.device
     outs = [] if collect else None
@@ -265,29 +287,38 @@ def _consume(produce, state, pad_row, cfg, fuse, collect, on_chunk, depth,
               "writebacks_avoided": 0, "working_set_rows": 0}
     pending = None  # chunk k-1's outputs, fetched after dispatching chunk k
     with Prefetcher(produce, depth=depth or DEFAULT_DEPTH) as pf:
-        for _start, stop, staged in pf:
-            if fuse is not None:
-                views = staged.slab.to_device(device)
-                ys = _dispatch_fused_chunk(
-                    table, staged, views, cfg, collect, fuse.backend, tier
-                )
-                if fused_flat is not None:
-                    fused_flat.append(staged.flat)
-                for key, val in staged.stats.items():
-                    totals[key] = (max(totals[key], val)
-                                   if key == "working_set_rows"
-                                   else totals[key] + val)
-            elif tier is not None:
-                views = staged.slab.to_device(device)
-                ys = tier.dispatch_chunk(table, staged, views, cfg, collect)
-            else:
-                views = staged.to_device(device)
-                ys = _reference_chunk_(table, pad_row, views, cfg, collect)
-            del views, staged
+        for start, stop, staged in pf:
+            slab = staged if fuse is None and tier is None else staged.slab
+            # The port's H2D copy: issued here, on the consumer's stream
+            # (sched/feed.py), where the JAX package's producer issues it.
+            with tracer.span("feed.transfer", cat="sched", start=start):
+                views = slab.to_device(device)
+            with tracer.span("batch.compute", cat="sched", start=start):
+                if fuse is not None:
+                    ys = _dispatch_fused_chunk(
+                        table, staged, views, cfg, collect, fuse.backend,
+                        tier,
+                    )
+                    if fused_flat is not None:
+                        fused_flat.append(staged.flat)
+                    for key, val in staged.stats.items():
+                        totals[key] = (max(totals[key], val)
+                                       if key == "working_set_rows"
+                                       else totals[key] + val)
+                elif tier is not None:
+                    ys = tier.dispatch_chunk(
+                        table, staged, views, cfg, collect
+                    )
+                else:
+                    ys = _reference_chunk_(
+                        table, pad_row, views, cfg, collect
+                    )
+                fetch = _Fetch(ys) if collect else None
+            del views, staged, slab
             if collect:
-                fetch = _Fetch(ys)
                 if pending is not None:
-                    outs.append(pending.result())
+                    with tracer.span("batch.fetch", cat="sched", start=start):
+                        outs.append(pending.result())
                 pending = fetch
             if on_chunk is not None:
                 # Tiered: the hook gets the logical full state (cold tier
@@ -304,6 +335,7 @@ def _consume(produce, state, pad_row, cfg, fuse, collect, on_chunk, depth,
                     tier.maybe_publish_view(view_publisher, table)
                 else:
                     view_publisher.maybe_publish_state(state)
+            maybe_sample_device_memory()  # chunk-boundary memory gauges
     if view_publisher is not None:  # the final table, unthrottled
         if tier is not None:
             tier.publish_view(view_publisher, table)
@@ -314,7 +346,8 @@ def _consume(produce, state, pad_row, cfg, fuse, collect, on_chunk, depth,
         # entry: bit-identical to the untiered runner's final table.
         state = tier.finish(table)
     if pending is not None:
-        outs.append(pending.result())
+        with tracer.span("batch.fetch", cat="sched", start=end_step()):
+            outs.append(pending.result())
     return state, outs, fused_flat, totals
 
 
@@ -433,8 +466,11 @@ def rate_stream(
     )
     state, outs, fused_flat, totals = _consume(
         feed.produce, state, pad_row, cfg, fuse, collect, on_chunk,
-        prefetch_depth, tier, view_publisher,
+        prefetch_depth, tier, view_publisher, end_step=lambda: feed.s_total,
     )
+    reg = get_registry()
+    reg.gauge("sched.occupancy").set(round(n / (feed.s_total * b), 4))
+    reg.counter("sched.steps_total").add(feed.s_total)
     if stats_out is not None:
         stats_out.update(
             n_steps=feed.s_total, batch_size=b,
@@ -538,7 +574,8 @@ class _StreamFeed:
 
     def _stage(self, e0: int, e1: int):
         """Backfills fillers into the free slots of steps [e0, e1) in stream
-        order, materializes the window and stages it for the consumer."""
+        order, materializes the window and stages it for the consumer, in
+        one ``feed.materialize`` span."""
         b = self.b
         win = self.slot_map[e0 * b: e1 * b]  # a view: the backfill lands in the map
         take = min(int((win < 0).sum()), self.fillers.size - self.n_fill)
@@ -547,18 +584,20 @@ class _StreamFeed:
             win[free] = self.fillers[self.n_fill: self.n_fill + take]
             self.n_fill += take
         mi = win.reshape(e1 - e0, b)
-        pidx, _mask = materialize_gather_window(self.stream, mi, self.pad_row,
-                                                self.team)
-        winner, mode_id, afk = materialize_scalar_window(self.stream, mi)
-        if self.fuse is not None:
-            return stage_fused_windows(
-                pidx, winner, mode_id, afk, self.pad_row, self.fuse,
-                match_idx=mi if self.collect else None, pin=self.pin,
-                tier=self.tier,
+        with get_tracer().span("feed.materialize", cat="sched", start=e0):
+            pidx, _mask = materialize_gather_window(
+                self.stream, mi, self.pad_row, self.team
             )
-        if self.tier is not None:
-            return self.tier.stage_windows(pidx, winner, mode_id, afk)
-        return stage_window(pidx, winner, mode_id, afk, self.pin)
+            winner, mode_id, afk = materialize_scalar_window(self.stream, mi)
+            if self.fuse is not None:
+                return stage_fused_windows(
+                    pidx, winner, mode_id, afk, self.pad_row, self.fuse,
+                    match_idx=mi if self.collect else None, pin=self.pin,
+                    tier=self.tier,
+                )
+            if self.tier is not None:
+                return self.tier.stage_windows(pidx, winner, mode_id, afk)
+            return stage_window(pidx, winner, mode_id, afk, self.pin)
 
     def _emit(self, put, e1: int) -> None:
         e0 = self.emitted

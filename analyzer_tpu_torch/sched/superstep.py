@@ -27,6 +27,7 @@ import numpy as np
 
 from analyzer_tpu_torch.core import constants
 from analyzer_tpu_torch.core.state import MAX_TEAM_SIZE
+from analyzer_tpu_torch.obs import get_registry
 from analyzer_tpu_torch.sched import _native
 
 #: Calls served by the python loops because no g++ was found.
@@ -559,4 +560,10 @@ def pack_schedule(
         pad_row=pad_row,
         team_size=team_size,
     )
+    # Slot occupancy: pad slots cost the device the same work as real
+    # ones, so the histogram shows the waste per schedule and the counter
+    # the slots burned in all.
+    reg = get_registry()
+    reg.histogram("sched.pack_occupancy").observe(round(ws.occupancy, 4))
+    reg.counter("sched.pad_slots_total").add(int(s_total * batch_size - n))
     return ws if windowed else ws.materialize()

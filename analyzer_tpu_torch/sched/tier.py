@@ -59,11 +59,14 @@ lists here have their real lengths.
 from __future__ import annotations
 
 import dataclasses
+import threading
+import weakref
 
 import numpy as np
 import torch
 
 from analyzer_tpu_torch.obs import get_registry, get_tracer
+from analyzer_tpu_torch.obs.devicemem import set_host_tier_sampler
 
 #: Smallest hot-set capacity: below this a single superstep rarely fits.
 MIN_HOT_ROWS = 8
@@ -74,6 +77,16 @@ def _pow2(n: int) -> int:
 
 
 _EMPTY = np.empty(0, np.int32)
+
+#: Live managers for the devicemem host-bytes probe (obs/devicemem.py
+#: samples the cold tier next to the device-memory gauges).
+_MANAGERS: "weakref.WeakSet[TierManager]" = weakref.WeakSet()
+_SAMPLER_INSTALLED = False
+_SAMPLER_LOCK = threading.Lock()
+
+
+def _host_tier_bytes() -> int:
+    return sum(m.host_nbytes for m in list(_MANAGERS))
 
 
 @dataclasses.dataclass
@@ -141,6 +154,7 @@ class TierManager:
     def __init__(self, state, hot_rows: int) -> None:
         if hot_rows < 1:
             raise ValueError(f"hot_rows must be >= 1, got {hot_rows}")
+        global _SAMPLER_INSTALLED
         self._template = state
         self.device = state.table.device
         self.pad_row = state.pad_row
@@ -182,6 +196,13 @@ class TierManager:
         reg.gauge("tier.hot_rows").set(self.capacity)
         reg.gauge("tier.host_bytes").set(self.host_nbytes)
         self._tracer = get_tracer()
+        _MANAGERS.add(self)
+        # Managers may be built from any thread; the install-once flag
+        # needs the lock even though a second install would be harmless.
+        with _SAMPLER_LOCK:
+            if not _SAMPLER_INSTALLED:
+                set_host_tier_sampler(_host_tier_bytes)
+                _SAMPLER_INSTALLED = True
 
     # -- sizing ----------------------------------------------------------
     @property
@@ -572,12 +593,13 @@ class TierManager:
 def stage_chunk_tiered(sched, start: int, stop: int, tier: TierManager,
                        collect: bool) -> TieredChunk:
     """Tiered sibling of ``feed.stage_chunk``: materializes the window,
-    then splits, plans, remaps and packs it through the tier manager.
-    ``collect`` needs no extra staging — the collected-output layout is
-    row-id-free and the chunk's slot->match map is unchanged by the split
-    (sub-windows are prefixes in order)."""
+    then splits, plans, remaps and packs it through the tier manager, in
+    one ``feed.materialize`` span. ``collect`` needs no extra staging —
+    the collected-output layout is row-id-free and the chunk's slot->match
+    map is unchanged by the split (sub-windows are prefixes in order)."""
     check = getattr(sched, "check_compact_invariant", None)
     if check is not None:
         check(start, stop)
-    pidx, _mask, winner, mode_id, afk = sched.host_window(start, stop)
-    return tier.stage_windows(pidx, winner, mode_id, afk)
+    with get_tracer().span("feed.materialize", cat="sched", start=start):
+        pidx, _mask, winner, mode_id, afk = sched.host_window(start, stop)
+        return tier.stage_windows(pidx, winner, mode_id, afk)

@@ -46,7 +46,7 @@ consistent with exactly one published version (reported as ``version`` in
 every result).
 
 The sharded engine (``ShardedQueryEngine``) is not ported yet (ROADMAP
-A11b), nor is the shadow audit hook (ROADMAP A16).
+A11b), nor is the shadow audit hook (ROADMAP A16b).
 """
 
 from __future__ import annotations
@@ -310,7 +310,7 @@ class QueryEngine:
 
     Every result dict carries ``version`` — the exactly-one published
     version it was computed against. ``auditor`` (the shadow audit hook)
-    must stay None until the audit plane is ported (ROADMAP A16).
+    must stay None until the audit plane is ported (ROADMAP A16b).
     """
 
     def __init__(
@@ -326,7 +326,7 @@ class QueryEngine:
     ) -> None:
         if auditor is not None:
             raise NotImplementedError(
-                "auditor= (the shadow audit) is not ported yet (ROADMAP A16)"
+                "auditor= (the shadow audit) is not ported yet (ROADMAP A16b)"
             )
         self.device = resolve_device(device)
         self.source = source

@@ -487,7 +487,9 @@ class PipelineEngine:
         chunk = w._step_chunk
         fetches = []
         pin = table.is_cuda
-        with dispatch_span:
+        with dispatch_span, w.profiler.maybe_capture(
+            context={"matches": n, "steps": sched.n_steps, "seq": self.seq}
+        ):
             for s0 in range(0, sched.n_steps, chunk):
                 s1 = min(s0 + chunk, sched.n_steps)
                 views = stage_chunk(sched, s0, s1, pin).to_device(table.device)

@@ -27,14 +27,17 @@ The port's copy of ``analyzer_tpu.service.worker``. Every batch is rated on
 the worker's ``device`` (None = the card) through the port's reference
 superstep (``sched.rate_history``, plain PyTorch on the card — the JAX
 package's worker runs its reference scan there too, not a Pallas kernel).
-The observability planes of the JAX worker — obsd (``obs_port``), the
-flight recorder (``flight_dir``), the device profiler (``profile_dir``),
-the SLO plane (``slo_plane``), the shadow audit (``audit``) and the
-rating-quality ledger (``quality``) — wait for ROADMAP A16: asking for one
-raises NotImplementedError, and ``slo_plane`` and ``quality`` default to
-False here until then (the one visible difference from the JAX signature;
-both planes are observers, and the JAX worker's results are bit-identical
-with them on or off). ``serve_shards > 1`` waits for ROADMAP A11b.
+The device profiler (``profile_dir``, obs/prof.py) is the JAX worker's:
+armed, it captures one ``torch.profiler`` window around the next batch's
+dispatch on SIGUSR2, after a dead letter and after a pipeline degradation.
+The other observability planes of the JAX worker — obsd (``obs_port``),
+the flight recorder (``flight_dir``), the SLO plane (``slo_plane``), the
+shadow audit (``audit``) and the rating-quality ledger (``quality``) —
+wait for ROADMAP A16b: asking for one raises NotImplementedError, and
+``slo_plane`` and ``quality`` default to False here until then (the one
+visible difference from the JAX signature; both planes are observers, and
+the JAX worker's results are bit-identical with them on or off).
+``serve_shards > 1`` waits for ROADMAP A11b.
 """
 
 from __future__ import annotations
@@ -48,7 +51,9 @@ import torch
 from analyzer_tpu_torch.config import RatingConfig, ServiceConfig
 from analyzer_tpu_torch.device import resolve_device
 from analyzer_tpu_torch.logging_utils import get_logger
-from analyzer_tpu_torch.obs import get_registry, get_tracer
+from analyzer_tpu_torch.obs import get_device_profiler, get_registry, get_tracer
+from analyzer_tpu_torch.obs import tracectx
+from analyzer_tpu_torch.obs.tracer import bind_trace
 from analyzer_tpu_torch.sched import pack_schedule, rate_history
 from analyzer_tpu_torch.service.broker import Broker, Message
 from analyzer_tpu_torch.service.encode import EncodedBatch
@@ -84,24 +89,23 @@ def _mirrored_counter(attr: str, series: str):
 SERVICE_STEP_CHUNK = 8
 
 #: ROADMAP items the refused keywords and flags wait for.
-A16 = "ROADMAP A16, the obs runtime"
+A16B = "ROADMAP A16b, the live obs planes"
 A11B = "ROADMAP A11b, the sharded serve plane"
 
 
-def _refuse_planes(obs_port, flight_dir, profile_dir, audit, slo_plane,
-                   quality, serve_shards) -> None:
+def _refuse_planes(obs_port, flight_dir, audit, slo_plane, quality,
+                   serve_shards) -> None:
     """Raises NotImplementedError for a plane the port does not have yet."""
     asked = [name for name, on in (
         ("obs_port", obs_port is not None),
         ("flight_dir", flight_dir is not None),
-        ("profile_dir", profile_dir is not None),
         ("audit", bool(audit)),
         ("slo_plane", bool(slo_plane)),
         ("quality", bool(quality)),
     ) if on]
     if asked:
         raise NotImplementedError(
-            f"Worker({', '.join(asked)}) is not ported yet ({A16}); leave "
+            f"Worker({', '.join(asked)}) is not ported yet ({A16B}); leave "
             "these at their defaults (slo_plane=False, quality=False)"
         )
     if serve_shards is not None and serve_shards > 1:
@@ -154,10 +158,12 @@ class Worker:
         """``device`` is where every batch is rated (None = the card; it
         raises without one, before anything is declared on the broker).
         ``obs_host``, ``audit_sample_denom``, ``audit_seed`` and
-        ``history_interval_s`` only tune the planes that wait for A16 and
-        are accepted for signature parity."""
-        _refuse_planes(obs_port, flight_dir, profile_dir, audit, slo_plane,
-                       quality, serve_shards)
+        ``history_interval_s`` only tune the planes that wait for A16b and
+        are accepted for signature parity. ``profile_dir`` (or
+        ``ANALYZER_TPU_PROFILE_DIR``) arms the process-wide device
+        profiler (obs/prof.py)."""
+        _refuse_planes(obs_port, flight_dir, audit, slo_plane, quality,
+                       serve_shards)
         self.device = resolve_device(device)
         self.broker = broker
         self.store = store
@@ -173,6 +179,14 @@ class Worker:
         self.dead_letters = 0
         self._started_at = clock()
         self._stop_requested = False
+        # Device-time attribution (obs/prof.py): armed by profile_dir here
+        # or ANALYZER_TPU_PROFILE_DIR; unarmed it costs one attribute read
+        # per batch. SIGUSR2 requests a capture of the next dispatch
+        # window; dead-letters and degradation request one automatically
+        # (throttled).
+        self.profiler = get_device_profiler()
+        if profile_dir is not None:
+            self.profiler.configure(profile_dir=profile_dir)
         # Pipelined consume loop (service/pipeline.py): overlap the next
         # batch's load/encode with the in-flight batch's device round
         # trip + commit. None = follow config.pipeline.
@@ -329,8 +343,9 @@ class Worker:
         SIGINT to :meth:`request_stop` (drain in-flight batches, exit
         cleanly) and SIGUSR1 to a ``stats()`` log line WITHOUT stopping —
         the operator's "what is this worker doing right now" signal
-        (main-thread only). The JAX worker's flight dump on SIGUSR1 and
-        device capture on SIGUSR2 wait for ROADMAP A16."""
+        (main-thread only), and SIGUSR2 to a device-profiler capture of the
+        next batch's dispatch. The JAX worker's flight dump on SIGUSR1
+        waits for ROADMAP A16b."""
         # NOT reset here: a stop requested before run() must be honored
         # (it is cleared on the stop exit below so the worker is reusable).
         previous_handlers = {}
@@ -344,6 +359,10 @@ class Worker:
             if hasattr(signal, "SIGUSR1"):  # not on Windows
                 previous_handlers[signal.SIGUSR1] = signal.signal(
                     signal.SIGUSR1, self._on_sigusr1
+                )
+            if hasattr(signal, "SIGUSR2"):  # on-demand device capture
+                previous_handlers[signal.SIGUSR2] = signal.signal(
+                    signal.SIGUSR2, self._on_sigusr2
                 )
         try:
             flushes = 0
@@ -587,6 +606,9 @@ class Worker:
         get_tracer().instant(
             "worker.dead_letter", cat="worker", messages=len(messages)
         )
+        # Device-time attribution for the failure window: a (throttled)
+        # capture of the NEXT dispatch.
+        self.profiler.request("dead_letter")
 
     def try_process(self) -> None:
         """Routes the flushed batch: the sequential reference-shaped path
@@ -597,11 +619,16 @@ class Worker:
         self.queue = []
         self._first_message_at = None
         mode = "pipelined" if self.pipeline_enabled else "sequential"
+        # Causal join (obs/tracectx.py, no-op when tracing is off): one
+        # batch.assemble instant maps member match traces -> this batch,
+        # and binding the batch id makes every span below — the feed
+        # thread's and the pipelined writer's included — part of one
+        # reconstructable tree (cli trace).
+        trace = tracectx.assemble(batch)
         # The batch lifecycle span: flush -> (encode/rate/commit or
         # dead-letter). In pipelined mode this covers submission only —
-        # commit + ack land in a later harvest (their own spans). The JAX
-        # worker's causal batch trace (obs/tracectx) waits for A16.
-        with get_tracer().span(
+        # commit + ack land in a later harvest (their own spans).
+        with bind_trace(trace), get_tracer().span(
             "batch.lifecycle", cat="worker", messages=len(batch), mode=mode
         ):
             if self.pipeline_enabled:
@@ -665,6 +692,7 @@ class Worker:
             "pipelined mode disabled (%s); using the sequential loop",
             reason,
         )
+        self.profiler.request("pipeline_degraded")
         set_prefetch = getattr(self.broker, "set_prefetch", None)
         if set_prefetch is not None:
             try:
@@ -842,6 +870,8 @@ class Worker:
             sched = self._bucketed_schedule(enc.stream, enc.state.pad_row)
         with tracer.span(
             "batch.compute", cat="worker", matches=n, steps=sched.n_steps
+        ), self.profiler.maybe_capture(
+            context={"matches": n, "steps": sched.n_steps}
         ):
             # Collected outputs come back to the host inside, so the span
             # closes only once the device has finished the batch.
@@ -889,6 +919,13 @@ class Worker:
                 ids[row] = pid
             rows = table[: len(ids)].detach().cpu().numpy()
             view = self.view_publisher.publish_rows(ids, rows)
+            if tracectx.tracing_enabled():
+                # The served-visible anchor of the causal chain: the bound
+                # batch trace rides in via args (the commit came first).
+                get_tracer().instant(
+                    "view.publish", cat="trace",
+                    version=view.version, players=view.n_players,
+                )
             logger.debug(
                 "published ratings view v%d (%d players)",
                 view.version, view.n_players,
@@ -901,6 +938,18 @@ class Worker:
         """SIGUSR1: a stats line WITHOUT stopping. Runs on the main thread
         between bytecodes (Python signal semantics)."""
         logger.info("SIGUSR1: %s", self.stats())
+
+    def _on_sigusr2(self, *_args) -> None:
+        """SIGUSR2: request a device-profiler capture of the NEXT batch's
+        dispatch window (no-op + a log line when no profile dir is armed).
+        Force-bypasses the throttle — an operator asking twice means it."""
+        if not self.profiler.armed:
+            logger.info(
+                "SIGUSR2: no profile dir armed (--profile-dir / "
+                "ANALYZER_TPU_PROFILE_DIR); ignoring capture request"
+            )
+            return
+        self.profiler.request("sigusr2", force=True)
 
     @property
     def matches_per_sec(self) -> float:
@@ -919,7 +968,7 @@ class Worker:
         ``tests/test_service.py::TestStats`` pins the key schema — a
         dropped key here silently breaks a metrics scraper. The ``slo``,
         ``quality``, ``migration`` and ``fabric`` blocks are None until
-        their planes are ported (ROADMAP A16, A13, A15)."""
+        their planes are ported (ROADMAP A16b, A13, A15)."""
         # The engine is built lazily at the first flush, but the lag is
         # already resolved (warmup probe / pinned config) — report it
         # whenever pipelined mode is on, None only when it's off.
@@ -963,7 +1012,7 @@ class Worker:
             # ported (ROADMAP A13) and a backfill has run in this process.
             "migration": None,
             # The SLO plane's, the quality ledger's and the fabric
-            # membership's blocks: None until ROADMAP A16 / A15 port them
+            # membership's blocks: None until ROADMAP A16b / A15 port them
             # (the JAX worker reports None with those planes off).
             "slo": None,
             "quality": None,
@@ -1053,9 +1102,11 @@ def main(
 
     ``serve_port`` (or ``ANALYZER_TPU_SERVE_PORT``) co-hosts the ratesrv
     query plane; ``device`` is where batches are rated (None = the card).
-    ``obs_port``/``flight_dir``/``profile_dir``/``audit``/``slo_plane``
-    (and their ``ANALYZER_TPU_*`` variables) wait for ROADMAP A16 and
-    ``serve_shards > 1`` for A11b: asking for one raises
+    ``profile_dir`` (or ``ANALYZER_TPU_PROFILE_DIR``) arms on-demand
+    ``torch.profiler`` capture windows — SIGUSR2, automatic on
+    dead-letter/degradation. ``obs_port``/``flight_dir``/``audit``/
+    ``slo_plane`` (and their ``ANALYZER_TPU_*`` variables) wait for
+    ROADMAP A16b and ``serve_shards > 1`` for A11b: asking for one raises
     NotImplementedError before anything connects."""
     config = ServiceConfig.from_env()
     if obs_port is None and os.environ.get("ANALYZER_TPU_OBS_PORT"):
@@ -1068,8 +1119,8 @@ def main(
     profile_dir = profile_dir or os.environ.get("ANALYZER_TPU_PROFILE_DIR")
     if audit is None and os.environ.get("ANALYZER_TPU_AUDIT", "") not in ("", "0"):
         audit = True
-    _refuse_planes(obs_port, flight_dir, profile_dir, audit, slo_plane,
-                   False, serve_shards)
+    _refuse_planes(obs_port, flight_dir, audit, slo_plane, False,
+                   serve_shards)
     device = resolve_device(device)
     from analyzer_tpu_torch.service.broker import make_pika_broker
 
@@ -1092,7 +1143,7 @@ def main(
         store = InMemoryStore()
     worker = Worker(
         broker, store, config, serve_port=serve_port,
-        serve_shards=serve_shards, device=device,
+        serve_shards=serve_shards, profile_dir=profile_dir, device=device,
     )
     worker.warmup()  # first touch of the device before consuming
     try:

@@ -31,13 +31,21 @@ lines:
      16, and twice at 16, must give bit-identical tables;
   5. main: ``pack_schedule(windowed=True)`` + ``rate_history(kernel=
      "fused")`` at full size, with the kernel's launch count taken over
-     exactly that run (it must equal the windows dispatched); then the
+     exactly that run (it must equal the windows dispatched), run with the
+     runner's spans on and under ``utils.profiling.trace`` (torch.profiler,
+     CPU + CUDA): one line splits the consumer loop's wall into feed wait,
+     dispatch, fetch and hooks (they must account for it within
+     ``SPLIT_TOL``) beside the producer thread's staging, and the
+     capture's attribution (``obs.profview``) gives device-busy seconds,
+     idle share and the top kernels — ``fused_window`` must be among them,
+     on a device lane; then the
      first twentieth of the schedule through ``kernel="reference"`` (plain
      PyTorch on the card) and through the fused path: NaN pattern exact,
      floats within ``PATH_RTOL``;
   prefix: the phases that re-rate the history a second time run on its
      first million matches (over the whole player table), against
-     ``rate_history(kernel="fused")`` on that prefix, launches counted;
+     ``rate_history(kernel="fused")`` on that prefix, launches counted,
+     its consumer loop split as [main]'s;
   6. stream: ``rate_stream(kernel="fused")`` over the prefix must give the
      prefix's table bit for bit, through the kernel;
   7. tier: the prefix through ``rate_history(kernel="fused",
@@ -58,9 +66,15 @@ lines:
      then 4 readers against a writer that republishes patches: versions
      only rise per reader and each response equals the oracle at its own
      version;
-  9. cli: the prefix saved as npz, then ``cli rate --kernel fused`` (the
-     streamed path) must report the prefix's ``players_rated`` and
-     ``mean_mu``; on the same prefix a bounded run with periodic
+  9. cli: the prefix saved as npz, then ``cli rate --kernel fused --trace
+     DIR --metrics-out m.json --trace-events t.jsonl`` (the streamed path)
+     must report the prefix's ``players_rated`` and ``mean_mu``; in
+     subprocesses ``cli metrics --format summary`` and ``cli profile DIR``
+     exit 0 (the snapshot counts supersteps and ``batch.compute`` spans,
+     the capture names ``fused_window`` on a device lane) and ``cli trace``
+     on the span export exits 2, as the JAX CLI's does on a rate run's
+     export (it holds no causal-trace events); on the same prefix a
+     bounded run with periodic
      checkpoints plus ``--resume`` must equal a one-shot checkpointed run
      bit for bit, and so must ``cli rate --hot-rows``;
  10. serve-http: ``python -m analyzer_tpu_torch.cli serve --checkpoint`` on
@@ -91,13 +105,23 @@ lines:
      its participant_items rows and the pipelined loop, fed the first
      10,000 ids, dead-letters exactly that message. Each loop's matches/s,
      lag, probe, native-scan fallbacks and per-batch span split are
-     printed;
+     printed, and each full loop's wall split into feed wait (broker
+     polls), encode, pack, dispatch, fetch and hooks (within
+     ``SPLIT_TOL``). Causal tracing is on for those two runs; the
+     sequential one is armed with ``Worker(profile_dir=)`` and asks for
+     ``WORKER_CAPTURES`` device-profiler windows mid-run, each attributed
+     (device busy and idle share beside its batch's ``batch.compute``);
+     ``cli trace`` reconstructs its span export and ``cli profile
+     --trace-events`` joins a capture to it (both exit 0). The poison
+     drill's dead letter must leave one capture directory with its
+     ``manifest.json``;
  14. timing: the fused window per window at the main path's shapes
      (``python -m analyzer_tpu_torch.experiments.window_timing``'s
      measurement: windows cut to 1..16 looped steps for the per-step
      slope, then as the main path calls it, with every step looped, and
      with a cluster of 16), beside its plain version and its bound; then
-     one ``{"kernels": [...]}`` line: per kernel its launches on its path
+     [main]'s fused_window by CUDA events x launches beside its profiler
+     attribution; one ``{"kernels": [...]}`` line: per kernel its launches on its path
      (the fused window's on the tiered path, the DB lane and the worker
      phase's ``cli rate --db`` beside them), the error
      against its plain version, its time at its path's shapes beside the
@@ -150,6 +174,14 @@ DB_PLAYERS = 333_333
 # participant_items rows) in batches of 500 ids.
 WORKER_MATCHES = 50_000
 WORKER_BATCH = 500
+# The consumer-loop splits must account for the loop's wall to this share.
+SPLIT_TOL = 0.05
+# The device profiler windows of the sequential [worker] run: this many
+# batches from the middle of the run, one capture each.
+WORKER_CAPTURES = 3
+# [main]'s unprofiled wall, seconds, in the two runs PERF.md §5 records from
+# before the profiler wrapped it (NVIDIA H100 80GB HBM3, 700.00 W).
+MAIN_UNPROFILED_S = (52.283, 55.953)
 # Runs the port's cli in a subprocess and reports, on stderr, the kernel
 # launches and native-scanner counters of that process.
 COUNTED_CLI = (
@@ -895,16 +927,239 @@ def db_phase(cli, tmp: str, dev, n_matches: int = DB_MATCHES) -> dict:
 
 
 def batch_split(names) -> str:
-    """Mean ms per batch of each named tracer span since the last reset."""
+    """Mean ms per batch of each named worker / pipeline span since the last
+    tracer reset (the runner's own chunk spans, category ``sched``, are left
+    out)."""
     from analyzer_tpu_torch.obs import get_tracer
 
-    evs = [e for e in get_tracer().events() if e.get("ph") == "X"]
+    evs = [e for e in get_tracer().events()
+           if e.get("ph") == "X" and e.get("cat") in ("worker", "pipeline")]
     parts = []
     for name in names:
         d = [e["dur"] for e in evs if e["name"] == name]
         if d:
             parts.append(f"{name} {np.mean(d) / 1e3:.2f} ms x{len(d)}")
     return ", ".join(parts)
+
+
+def tracer_us(tracer) -> float:
+    """Now, on ``tracer``'s clock (the microseconds its spans carry)."""
+    return (time.perf_counter() - tracer.epoch_perf) * 1e6
+
+
+def spans_on(events, tid, names, t0: float, t1: float) -> list:
+    """The complete spans named in ``names`` (a set of names, or of (name,
+    cat) pairs) that thread ``tid`` emitted inside [t0, t1]."""
+    return [e for e in events
+            if e.get("ph") == "X" and e["tid"] == tid and t0 <= e["ts"] <= t1
+            and (e["name"] in names or (e["name"], e["cat"]) in names)]
+
+
+def busy_s(spans) -> float:
+    return sum(e["dur"] for e in spans) / 1e6
+
+
+def gap_s(spans, t0: float, t1: float) -> tuple[float, float]:
+    """(seconds of [t0, t1] before and between ``spans``, seconds after the
+    last): the time the thread spent outside them."""
+    gap, cursor = 0.0, t0
+    for e in sorted(spans, key=lambda e: e["ts"]):
+        gap += max(0.0, e["ts"] - cursor)
+        cursor = max(cursor, e["ts"] + e["dur"])
+    return gap / 1e6, (t1 - cursor) / 1e6
+
+
+def check_sum(tag: str, parts: dict, wall: float) -> float:
+    """Fails unless the parts account for ``wall`` to within 5%; returns
+    their share of it."""
+    share = sum(parts.values()) / wall
+    if abs(1.0 - share) > SPLIT_TOL:
+        raise AssertionError(
+            f"{tag}: the split's parts sum to {share:.3f} of the wall "
+            f"(tolerance {SPLIT_TOL}): {parts}")
+    return share
+
+
+def runner_split(tag: str, tracer, t0: float, t1: float, counters0: dict) -> str:
+    """One line splitting a runner's consumer loop — the ``rate_history`` /
+    ``rate_stream`` call between tracer times ``t0`` and ``t1``, on this
+    thread — into feed wait (the gaps between its spans: waiting on the
+    feed for a staged chunk), dispatch (``batch.compute`` and the
+    consumer's ``feed.transfer``, the slab's copy to the card), fetch
+    (``batch.fetch``) and hooks (publish and checkpoint: none on the runs
+    this is called for). Fails unless they account for the wall within
+    ``SPLIT_TOL``. Adds the producer thread's staging totals and the
+    feed's counters over the run."""
+    from analyzer_tpu_torch.obs import get_registry
+
+    me = threading.get_ident() % 1_000_000
+    evs = tracer.events()
+    transfer = spans_on(evs, me, {"feed.transfer"}, t0, t1)
+    compute = spans_on(evs, me, {"batch.compute"}, t0, t1)
+    fetch = spans_on(evs, me, {"batch.fetch"}, t0, t1)
+    wait, tail = gap_s(transfer + compute + fetch, t0, t1)
+    wall = (t1 - t0) / 1e6
+    parts = {"feed wait": wait, "dispatch": busy_s(transfer + compute),
+             "fetch": busy_s(fetch), "hooks": 0.0}
+    share = check_sum(tag, parts, wall)
+    producer = [e for e in evs if e.get("ph") == "X" and e["tid"] != me
+                and t0 <= e["ts"] <= t1]
+    c = get_registry().snapshot()["counters"]
+    starved = int(c["feed.starved_total"] - counters0["feed.starved_total"])
+    backpressure = int(c["feed.backpressure_total"]
+                       - counters0["feed.backpressure_total"])
+    return (
+        f"{tag} consumer loop split (wall {wall:.3f} s, {len(compute)} chunks): "
+        f"feed wait {wait:.3f} s (feed.starved_total {starved}), dispatch "
+        f"{parts['dispatch']:.3f} s (batch.compute {busy_s(compute):.3f}, "
+        f"feed.transfer on the consumer {busy_s(transfer):.3f}), fetch "
+        f"{parts['fetch']:.3f} s, hooks 0 s (none on this run); parts = "
+        f"{100 * share:.2f}% of the wall (after the last span {tail:.3f} s); "
+        f"producer thread: feed.materialize "
+        f"{busy_s([e for e in producer if e['name'] == 'feed.materialize']):.3f} s, "
+        f"feed.transfer "
+        f"{busy_s([e for e in producer if e['name'] == 'feed.transfer']):.3f} s; "
+        f"feed.backpressure_total {backpressure}")
+
+
+def feed_counters() -> dict:
+    from analyzer_tpu_torch.obs import get_registry
+
+    c = get_registry().snapshot()["counters"]
+    return {k: c[k] for k in ("feed.starved_total", "feed.backpressure_total")}
+
+
+def attribution(tag: str, capture: str) -> dict:
+    """``obs.profview.analyze_capture`` over a capture directory, printed:
+    device-busy seconds, idle share, lanes, top kernels. Fails where the
+    capture parsed nothing or found no device lane."""
+    from analyzer_tpu_torch.obs.profview import analyze_capture
+
+    att = analyze_capture(capture, update_metrics=False)
+    if not att["parsed"] or not att["device"]["lanes"]:
+        raise AssertionError(
+            f"{tag}: the capture in {capture} parsed {att['parsed']}, device "
+            f"lanes {(att['device'] or {}).get('lanes')}: {att['error']}")
+    dev = att["device"]
+    top = "; ".join(f"{k['name'][:48]} {k['total_us'] / 1e3:.3f} ms x{k['count']}"
+                    for k in att["kernels"][:5])
+    log(f"{tag} profiler attribution ({len(att['trace_files'])} trace file(s)): "
+        f"device busy {dev['busy_us'] / 1e6:.4f} s of a "
+        f"{dev['window_us'] / 1e6:.4f} s device window, idle share "
+        f"{dev['idle_frac']:.4f}, {dev['lanes']} device lane(s), compile "
+        f"{att['compile']['compile_us']} us; top kernels: {top}")
+    return att
+
+
+def fused_row(att: dict) -> dict | None:
+    """The attribution's ``fused_window`` entry, or None."""
+    rows = [k for k in att["kernels"] if "fused_window" in k["name"]]
+    return rows[0] if rows else None
+
+
+def worker_split(mode: str, tracer, got: dict) -> str:
+    """One line splitting the worker's consume loop (first poll to last,
+    this thread) into feed wait (the gaps between its batches: polling the
+    broker), encode, pack, dispatch (sequential: the batch's rate_history
+    less its fetches; pipelined: chain patch and dispatch), fetch
+    (sequential: the runner's ``batch.fetch``) and hooks (commit, view
+    publish, acks — and, pipelined, waiting on the writer). Fails unless
+    they account for the loop's wall within ``SPLIT_TOL``. Adds the writer
+    thread's totals (pipelined) and the drain after the last poll."""
+    me = threading.get_ident() % 1_000_000
+    u0, u1 = ((got[k] - tracer.epoch_perf) * 1e6 for k in ("polls_from", "polls_to"))
+    drain_s = got["seconds"] - (got["polls_to"] - got["polls_from"])
+    evs = tracer.events()
+
+    def on_me(*names):
+        return busy_s(spans_on(evs, me, set(names), u0, u1))
+
+    life = spans_on(evs, me, {"batch.lifecycle"}, u0, u1)
+    wait, _tail = gap_s(life, u0, u1)
+    encode, pack = on_me("batch.encode"), on_me("batch.pack")
+    fetch = on_me(("batch.fetch", "sched"))
+    if mode == "sequential":
+        dispatch = on_me(("batch.compute", "worker")) - fetch
+        commit = on_me(("batch.commit", "worker"))
+    else:
+        dispatch = on_me("batch.chain", "batch.dispatch")
+        commit = 0.0
+    hooks = busy_s(life) - encode - pack - dispatch - fetch
+    wall = (u1 - u0) / 1e6
+    parts = {"feed wait": wait, "encode": encode, "pack": pack,
+             "dispatch": dispatch, "fetch": fetch, "hooks": hooks}
+    share = check_sum(f"[worker] {mode}", parts, wall)
+    writer = [e for e in evs if e.get("ph") == "X" and e["tid"] != me
+              and e["cat"] == "pipeline" and u0 <= e["ts"] <= u1 + drain_s * 1e6]
+    writer_part = ", ".join(
+        f"{name} {busy_s([e for e in writer if e['name'] == name]):.3f} s"
+        for name in ("batch.fetch", "batch.write_back", "batch.commit"))
+    n = len(life)
+    return (
+        f"[worker] {mode} consumer loop split (wall {wall:.3f} s, {n} batches; "
+        f"per batch in ms): feed wait {1e3 * wait / n:.2f} (broker polls), "
+        f"encode {1e3 * encode / n:.2f}, pack {1e3 * pack / n:.2f}, dispatch "
+        f"{1e3 * dispatch / n:.2f}, fetch {1e3 * fetch / n:.2f}, hooks "
+        f"{1e3 * hooks / n:.2f} (commit {1e3 * commit / n:.2f} on this thread); "
+        f"parts = {100 * share:.2f}% of the wall; drain after the last poll "
+        f"{drain_s:.3f} s"
+        + (f"; writer thread: {writer_part}" if mode != "sequential" else ""))
+
+
+def worker_captures(tracer, prof_dir: str, export: str) -> dict:
+    """The sequential run's device-profiler windows: one attribution line
+    (busy and idle per captured batch, beside that batch's
+    ``batch.compute``), then ``cli trace`` on the run's span export and
+    ``cli profile --trace-events`` joining the first capture to it, both
+    in subprocesses with exit 0."""
+    from analyzer_tpu_torch.obs.profview import analyze_capture
+
+    caps = sorted(os.path.join(prof_dir, d) for d in os.listdir(prof_dir)
+                  if d.startswith("profile-") and "bench" in d)
+    if len(caps) != WORKER_CAPTURES:
+        raise AssertionError(f"[worker] {len(caps)} profiler windows, expected "
+                             f"{WORKER_CAPTURES}: {caps}")
+    compute = {e["args"].get("trace"): e["dur"] / 1e3 for e in tracer.events()
+               if (e["name"], e["cat"]) == ("batch.compute", "worker")}
+    rows = []
+    for cap in caps:
+        att = analyze_capture(cap, update_metrics=False)
+        if not att["parsed"] or not att["device"]["lanes"]:
+            raise AssertionError(f"[worker] capture {cap}: parsed {att['parsed']}, "
+                                 f"no device lane: {att['error']}")
+        batch = att["manifest"]["batches"][0]
+        rows.append((batch, att, compute.get(batch)))
+    first = rows[0][1]
+    top = "; ".join(f"{k['name'][:40]} {k['total_us'] / 1e3:.3f} ms x{k['count']}"
+                    for k in first["kernels"][:5])
+    per = ", ".join(
+        f"{b}: busy {a['device']['busy_us'] / 1e3:.3f} ms, idle share "
+        f"{a['device']['idle_frac']:.4f}, batch.compute {c:.2f} ms"
+        for b, a, c in rows)
+    log(f"[worker] sequential, {len(rows)} device profiler windows (Worker("
+        f"profile_dir=), one batch each): {per}; top kernels of {rows[0][0]}: {top}")
+    tr = cli_sub("trace", export, "--json")
+    if tr.returncode != 0:
+        raise AssertionError(f"cli trace on the worker export exited "
+                             f"{tr.returncode}: {tr.stderr}")
+    cp = json.loads(tr.stdout)
+    pr = cli_sub("profile", caps[0], "--trace-events", export, "--json")
+    if pr.returncode != 0:
+        raise AssertionError(f"cli profile --trace-events exited {pr.returncode}: "
+                             f"{pr.stderr}")
+    d = json.loads(pr.stdout).get("dispatch_decomposition")
+    if d is None or d["scope"] != "manifest":
+        raise AssertionError(f"cli profile: the capture did not join the worker "
+                             f"trace: {d}")
+    shares = " / ".join(f"{k} {v:.4f}" for k, v in (d.get("shares") or {}).items())
+    log(f"[worker] cli trace exit 0: {cp['batches']} batches, dominant stage "
+        f"{cp['dominant_stage']}, stage shares "
+        + ", ".join(f"{k} {v:.3f}" for k, v in cp["stage_share"].items() if v)
+        + f"; cli profile --trace-events exit 0: dispatch of {d['batches']} "
+        f"{d['dispatch_ms']:.3f} ms = device execute {d['device_execute_ms']:.3f} + "
+        f"device idle {d['device_idle_ms']:.3f} + host {d['host_overhead_ms']:.3f} ms "
+        f"({shares})")
+    return {"busy_ms": [a["device"]["busy_us"] / 1e3 for _, a, _ in rows]}
 
 
 def worker_phase(cli, tmp: str, dev, n_matches: int = WORKER_MATCHES) -> dict:
@@ -920,7 +1175,8 @@ def worker_phase(cli, tmp: str, dev, n_matches: int = WORKER_MATCHES) -> dict:
     from analyzer_tpu_torch.config import RatingConfig, ServiceConfig
     from analyzer_tpu_torch.experiments.service_bench import build_db, match_ids, run_loop
     from analyzer_tpu_torch.kernels import fused_window as fw
-    from analyzer_tpu_torch.obs import get_registry, reset_tracer
+    from analyzer_tpu_torch.obs import get_registry, reset_tracer, tracectx, write_chrome_trace
+    from analyzer_tpu_torch.obs.profview import analyze_capture
     from analyzer_tpu_torch.service import InMemoryBroker, SqlStore, Worker
 
     n_players = n_matches // 3
@@ -960,19 +1216,29 @@ def worker_phase(cli, tmp: str, dev, n_matches: int = WORKER_MATCHES) -> dict:
         pipelined = mode != "sequential"
         broker = InMemoryBroker()
         cfg = ServiceConfig(batch_size=WORKER_BATCH, idle_timeout=0)
+        # The device profiler is armed for the sequential run (windows it
+        # asks for) and the poison drill (the dead letter asks for one);
+        # causal tracing is on for the two full runs.
+        prof_dir = os.path.join(tmp, f"prof_{mode}")
         w = Worker(broker, SqlStore(f"sqlite:///{path}"), cfg, RatingConfig(),
                    pipeline=pipelined, serve_port=0 if mode == "pipelined" else None,
+                   profile_dir=None if mode == "pipelined" else prof_dir,
                    device=dev)
         t0 = time.perf_counter()
         w.warmup()
         t_warm = time.perf_counter() - t0
-        reset_tracer()
+        tracer = reset_tracer()
+        tracectx.enable_tracing(mode != "poison")
         fallbacks0 = get_registry().counter("sql.native_fallbacks_total").value
         # The poison drill consumes the first fifth of the ids (the
         # poisoned match among them): the same check at a fifth of the
         # depth of the full runs.
         run_ids = ids[: n_matches // 5] if mode == "poison" else ids
-        got = run_loop(w, broker, run_ids, cfg.queue)
+        mid = -(-len(run_ids) // WORKER_BATCH) // 2
+        got = run_loop(w, broker, run_ids, cfg.queue,
+                       capture_at=range(mid, mid + WORKER_CAPTURES)
+                       if mode == "sequential" else ())
+        tracectx.enable_tracing(False)
         stats = w.stats()
         fallbacks = int(get_registry().counter("sql.native_fallbacks_total").value
                         - fallbacks0)
@@ -1005,6 +1271,12 @@ def worker_phase(cli, tmp: str, dev, n_matches: int = WORKER_MATCHES) -> dict:
             f"{fallbacks}; per batch: {split}"
             + (f"; /v1/ratings of {len(served)} players over HTTP = the committed "
                "rows bit for bit" if served is not None else ""))
+        if mode != "poison":
+            log(worker_split(mode, tracer, got))
+        if mode == "sequential":
+            export = os.path.join(tmp, "worker.jsonl")
+            write_chrome_trace(export, tracer)
+            captured = worker_captures(tracer, prof_dir, export)
         results[mode] = (stats, failed, got)
         if mode == "poison":
             if failed != [bad] or stats["matches_rated"] != len(run_ids) - 1:
@@ -1013,6 +1285,21 @@ def worker_phase(cli, tmp: str, dev, n_matches: int = WORKER_MATCHES) -> dict:
             log(f"[worker] poison: match {bad} without participant_items rows: "
                 f"exactly that message dead-lettered, the other "
                 f"{stats['matches_rated']} committed")
+            # The dead letter asked the profiler for the next batch's
+            # dispatch: one capture directory with its manifest.
+            caps = [d for d in os.listdir(prof_dir) if "dead_letter" in d]
+            if len(caps) != 1:
+                raise AssertionError(f"poison: dead-letter captures {caps}")
+            att = analyze_capture(os.path.join(prof_dir, caps[0]),
+                                  update_metrics=False)
+            if not att["parsed"] or att["manifest"]["reason"] != "dead_letter" \
+                    or not att["device"]["lanes"]:
+                raise AssertionError(f"poison: the dead-letter capture: {att['error']}")
+            log(f"[worker] poison: the dead letter requested a capture of the next "
+                f"batch's dispatch: {caps[0]} with manifest.json (reason "
+                f"dead_letter, {att['manifest']['matches']} matches), device busy "
+                f"{att['device']['busy_us'] / 1e3:.3f} ms, idle share "
+                f"{att['device']['idle_frac']:.4f}")
         elif failed or stats["matches_rated"] != n_matches or stats["dead_letters"]:
             raise AssertionError(f"{mode}: dead letters {failed[:5]}, rated "
                                  f"{stats['matches_rated']}")
@@ -1041,7 +1328,55 @@ def worker_phase(cli, tmp: str, dev, n_matches: int = WORKER_MATCHES) -> dict:
         f"its rows exactly: {same}")
     if not same:
         raise AssertionError("worker player rows differ from cli rate --db's")
-    return {"launches_worker_cli": cli_launches}
+    return {"launches_worker_cli": cli_launches, **captured}
+
+
+def cli_sub(*argv) -> subprocess.CompletedProcess:
+    """``python -m analyzer_tpu_torch.cli ARGV`` in a subprocess from the
+    checkout's root."""
+    return subprocess.run(
+        [sys.executable, "-m", "analyzer_tpu_torch.cli", *argv],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+    )
+
+
+def cli_obs_phase(m_json: str, t_jsonl: str, capture: str, launches: int) -> None:
+    """The artifacts of ``cli rate --trace --metrics-out --trace-events``
+    through ``cli metrics``, ``cli profile`` and ``cli trace``, each in a
+    subprocess: the snapshot counts supersteps and ``batch.compute`` spans,
+    the capture attributes ``fused_window`` on a device lane, and the span
+    export — which holds no causal-trace events — exits 2 in ``cli trace``,
+    as the JAX package's does on a rate run's export."""
+    snap = json.load(open(m_json))
+    steps = snap["counters"]["sched.steps_total"]
+    computes = sum(1 for e in snap["spans"] if e["name"] == "batch.compute")
+    if not steps or not computes:
+        raise AssertionError(f"--metrics-out: sched.steps_total {steps}, "
+                             f"batch.compute spans {computes}")
+    summ = cli_sub("metrics", m_json, "--format", "summary")
+    if summ.returncode != 0 or "sched.steps_total" not in summ.stdout:
+        raise AssertionError(f"cli metrics exited {summ.returncode}: {summ.stderr}")
+    prof = cli_sub("profile", capture, "--json")
+    if prof.returncode != 0:
+        raise AssertionError(f"cli profile exited {prof.returncode}: {prof.stderr}")
+    att = json.loads(prof.stdout)
+    row = fused_row(att)
+    if row is None or not att["device"]["lanes"]:
+        raise AssertionError(f"cli profile: no fused_window on a device lane: "
+                             f"{[k['name'] for k in att['kernels'][:8]]}")
+    tr = cli_sub("trace", t_jsonl)
+    if tr.returncode != 2 or "no causal-trace events" not in tr.stderr:
+        raise AssertionError(f"cli trace on a rate export exited {tr.returncode} "
+                             f"(expected 2, as the JAX CLI): {tr.stderr}")
+    log(f"[cli] --metrics-out: sched.steps_total {int(steps)}, {computes} "
+        f"batch.compute spans, {len(snap['spans'])} spans; cli metrics --format "
+        f"summary exit 0 ({len(summ.stdout.splitlines())} lines); cli profile exit "
+        f"0: fused_window x{row['count']} (launches {launches}), "
+        f"{row['total_us'] / 1e3 / row['count']:.5f} ms per launch, device busy "
+        f"{att['device']['busy_us'] / 1e6:.4f} s, idle share "
+        f"{att['device']['idle_frac']:.4f}; cli trace on the span export exit 2 "
+        "(no causal-trace events in a rate run, as the JAX CLI)")
 
 
 def run_cli(cli, *argv) -> dict:
@@ -1079,12 +1414,13 @@ def main(argv=None) -> int:
     from analyzer_tpu_torch.io.synthetic import synthetic_players, synthetic_stream
     from analyzer_tpu_torch.kernels import fused_window as fw
     from analyzer_tpu_torch.kernels import row_scatter as rs
-    from analyzer_tpu_torch.obs import get_registry, reset_registry
+    from analyzer_tpu_torch.obs import get_registry, reset_registry, reset_tracer
     from analyzer_tpu_torch.sched import _native, pack_schedule, rate_history, rate_stream
     from analyzer_tpu_torch.serve import ViewPublisher
     from analyzer_tpu_torch.sched.feed import stage_chunk_fused
     from analyzer_tpu_torch.sched.residency import resolve_fuse
     from analyzer_tpu_torch.service import _native_sql
+    from analyzer_tpu_torch.utils.profiling import trace
 
     dev = torch.device("cuda")
     cfg = RatingConfig()
@@ -1189,17 +1525,24 @@ def main(argv=None) -> int:
         "repeat at 16 give bit-identical tables")
     del prefix
 
-    # -- 5. the main path at full size --------------------------------------
+    # -- 5. the main path at full size, spans on, under the profiler --------
     fw.launches = 0
     stats: dict = {}
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ev0.record()
-    fused_state, _ = rate_history(state0, sched, cfg, kernel="fused", stats_out=stats)
-    ev1.record()
-    torch.cuda.synchronize()
-    t_fused = time.perf_counter() - t0
+    tracer = reset_tracer()
+    counters0 = feed_counters()
+    cap_main = tempfile.mkdtemp(prefix="chip_smoke_main_prof_")
+    with trace(cap_main):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u0 = tracer_us(tracer)
+        ev0.record()
+        fused_state, _ = rate_history(state0, sched, cfg, kernel="fused",
+                                      stats_out=stats)
+        ev1.record()
+        torch.cuda.synchronize()
+        t_fused = time.perf_counter() - t0
+        u1 = tracer_us(tracer)
     launches = fw.launches
     dev_ms = ev0.elapsed_time(ev1)
     table = fused_state.table[:n_players]
@@ -1220,6 +1563,19 @@ def main(argv=None) -> int:
         f"{stats['pad_steps']}, working set high-water {stats['working_set_rows']} "
         f"rows; fused_window launches {launches}; players rated {n_rated}")
     del table, rated, ratings, fused_state
+    log(f"[main] the wall above was taken under torch.profiler (CPU + CUDA) with "
+        f"spans on; unprofiled on this card (PERF.md): "
+        f"{MAIN_UNPROFILED_S[0]} / {MAIN_UNPROFILED_S[1]} s")
+    log(runner_split("[main]", tracer, u0, u1, counters0))
+    main_att = attribution("[main]", cap_main)
+    main_fused = fused_row(main_att)
+    if main_fused is None:
+        raise AssertionError("[main]: fused_window is not in the capture's kernel table")
+    log(f"[main] fused_window in the attribution: {main_fused['count']} launches "
+        f"(counted {launches}), {main_fused['total_us'] / 1e6:.4f} s device time, "
+        f"{main_fused['total_us'] / 1e3 / main_fused['count']:.5f} ms per launch; "
+        f"CUDA events x launches in [timing]")
+    shutil.rmtree(cap_main, ignore_errors=True)
 
     # The reference kernel (plain PyTorch on the card) over the first
     # twentieth of the schedule (a tenth until the [db] and [worker] phases
@@ -1253,11 +1609,15 @@ def main(argv=None) -> int:
     pre_sched = pack_schedule(pre, pad_row=state0.pad_row, windowed=True)
     fw.launches = 0
     p_stats: dict = {}
+    tracer = reset_tracer()
+    counters0 = feed_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    u0 = tracer_us(tracer)
     pre_state, _ = rate_history(state0, pre_sched, cfg, kernel="fused", stats_out=p_stats)
     torch.cuda.synchronize()
     t_pre = time.perf_counter() - t0
+    u1 = tracer_us(tracer)
     a_pre = pre_state.table.cpu().numpy()
     del pre_state
     if fw.launches == 0 or fw.launches != p_stats["windows"]:
@@ -1268,6 +1628,7 @@ def main(argv=None) -> int:
     log(f"[prefix] first {pre.n_matches} matches: rate_history(kernel='fused') "
         f"{t_pre:.3f} s, {pre_sched.n_steps} steps, windows {p_stats['windows']}, "
         f"fused_window launches {fw.launches}; players rated {pre_rated}")
+    log(runner_split("[prefix]", tracer, u0, u1, counters0))
 
     # -- 6. the streamed feed (on the prefix) -------------------------------
     fw.launches = 0
@@ -1370,7 +1731,13 @@ def main(argv=None) -> int:
         pre_path = os.path.join(tmp, "prefix.npz")
         save_stream_npz(pre_path, pre)
         fw.launches = 0
-        got = run_cli(cli, "rate", "--csv", pre_path, "--kernel", "fused")
+        reset_registry()
+        reset_tracer()
+        cap_cli = os.path.join(tmp, "cli_prof")
+        m_json, t_jsonl = os.path.join(tmp, "m.json"), os.path.join(tmp, "t.jsonl")
+        got = run_cli(cli, "rate", "--csv", pre_path, "--kernel", "fused",
+                      "--trace", cap_cli, "--metrics-out", m_json,
+                      "--trace-events", t_jsonl)
         c_launches = fw.launches
         if c_launches == 0:
             raise AssertionError("cli rate never launched fused_window")
@@ -1383,6 +1750,11 @@ def main(argv=None) -> int:
         log(f"[cli] streamed rate of the first {pre.n_matches} matches agrees with "
             f"rate_history on the prefix: players_rated {pre_rated}, mean_mu "
             f"{pre_mean_mu}; fused_window launches {c_launches}")
+        cli_obs_phase(m_json, t_jsonl, cap_cli, c_launches)
+        log(f"[cli] profiler cost on the fused path: the profiled run's rate phase "
+            f"{got['phases']['rate']:.3f} s (capture export included) against "
+            f"[stream]'s unprofiled rate_stream {t_stream:.3f} s over the same "
+            f"matches: {100 * (got['phases']['rate'] / t_stream - 1):+.1f}%")
 
         pre_steps = pack_schedule(
             pre, pad_row=int(pre.player_idx.max()) + 1, windowed=True
@@ -1467,6 +1839,12 @@ def main(argv=None) -> int:
         f"+ {slope['intercept_ms']:.5f} ms per launch (fit of {slope['fit_of']}); plain "
         f"{plain_ms:.4f} ms; bound {bound_ms:.6f} ms ({bound_by}); main-path kernel "
         f"total ~{ms * launches / 1e3:.3f} s over {launches} launches")
+    attr_ms = main_fused["total_us"] / 1e3 / main_fused["count"]
+    log(f"[timing] fused_window on [main]: CUDA events x launches {ms:.5f} ms x "
+        f"{launches} = {ms * launches / 1e3:.4f} s; profiler attribution of the "
+        f"[main] capture {attr_ms:.5f} ms x {main_fused['count']} = "
+        f"{main_fused['total_us'] / 1e6:.4f} s; capture's whole device busy time "
+        f"{main_att['device']['busy_us'] / 1e6:.4f} s")
 
     log(json.dumps({"kernels": [
         {
@@ -1485,6 +1863,8 @@ def main(argv=None) -> int:
             "bound_by": bound_by,
             "library_ms": None,
             "device_ms": main_call["device_ms"],
+            "attribution_ms": attr_ms,
+            "attribution_launches": main_fused["count"],
             "all_steps_ms": slope["all_steps"]["ms"],
             "cluster": cluster,
             "cluster8_ms": c8["ms"],

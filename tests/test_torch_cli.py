@@ -268,6 +268,9 @@ class TestRate:
         ("--prefetch-depth", "0"),
         ("--fuse-window", "0"),
         ("--hot-rows", "-1"),
+        ("--mesh", "-1"),
+        ("--mesh", "2", "--kernel", "fused"),
+        ("--mesh", "2", "--hot-rows", "8"),
     ])
     def test_flag_errors_match_jax(self, tmp_path, capsys, argv):
         csv = _write(tmp_path, n=10, p=12)
@@ -275,6 +278,35 @@ class TestRate:
         ours = capsys.readouterr().err.strip()
         assert jax_main(["rate", "--csv", csv, *argv]) == 2
         assert ours == capsys.readouterr().err.strip() != ""
+
+    def test_telemetry_flags_leave_the_run_unchanged(self, tmp_path, capsys):
+        """--trace / --metrics-out / --trace-events on a kill-and-resume:
+        the checkpoint equals a plain one-shot run's bit for bit, and the
+        resumed run's snapshot counts exactly the supersteps it rated."""
+        from analyzer_tpu_torch.obs import reset_registry
+
+        csv = _write(tmp_path)
+        full = str(tmp_path / "full.npz")
+        whole = _run(capsys, "rate", "--csv", csv, "--checkpoint", full)
+        part = str(tmp_path / "part.npz")
+        obs_args = ("--metrics-out", str(tmp_path / "m.json"),
+                    "--trace-events", str(tmp_path / "t.jsonl"),
+                    "--trace", str(tmp_path / "cap"))
+        _run(capsys, "rate", "--csv", csv, "--checkpoint", part,
+             "--checkpoint-every", "3", "--stop-after-steps", "6", *obs_args)
+        stop = ck.load_checkpoint(part, device="cpu").step_cursor
+        reset_registry()  # the registry is per process: count this run alone
+        _run(capsys, "rate", "--csv", csv, "--checkpoint", part, "--resume",
+             *obs_args)
+        a = ck.load_checkpoint(full, device="cpu")
+        b = ck.load_checkpoint(part, device="cpu")
+        assert np.array_equal(a.state.table.numpy(), b.state.table.numpy(),
+                              equal_nan=True)
+        snap = json.load(open(tmp_path / "m.json"))
+        assert snap["counters"]["sched.steps_total"] == whole["supersteps"] - stop
+        events = [json.loads(ln) for ln in open(tmp_path / "t.jsonl")]
+        assert {e["name"] for e in events} >= {"feed.materialize", "batch.compute"}
+        assert os.path.isdir(tmp_path / "cap" / "plugins" / "profile")
 
     def test_missing_csv(self, capsys):
         assert main(["rate", "--device", "cpu"]) == 2

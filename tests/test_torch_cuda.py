@@ -6,7 +6,9 @@ launch counter, and the fused path against the reference path on the card;
 the row scatter, one step and a multi-step run in one launch, held against
 ``index_copy_``, bit for bit; the tiered table on the card (paging through
 pinned memory, a demotion's copy waited on before the cold tier is
-written) and the query engine on the card against its oracle. Every test
+written), the query engine on the card against its oracle, and a
+``torch.profiler`` capture of the fused path attributed to the kernel on a
+device lane. Every test
 needs a CUDA device (marker
 ``cuda``) and skips with a reason without one. On the card, where JAX is
 not installed, run them without the suite's conftest:
@@ -488,3 +490,29 @@ def test_pipelined_worker_equals_sequential_on_the_card(cuda, tmp_path, monkeypa
     assert ra == rb
     assert len(ta) == len(tb) == 10
     assert all(x.tobytes() == y.tobytes() for x, y in zip(ta, tb))
+
+
+def test_trace_capture_finds_fused_window_on_a_device_lane(cuda, tmp_path):
+    """``utils.profiling.trace`` around a fused run on the card: the capture
+    has the layout ``obs/profview`` reads, its "GPU 0" lane is found as a
+    device lane, the host lanes are not, and the per-kernel table names
+    ``fused_window_kernel`` with one entry per launch."""
+    from analyzer_tpu_torch.obs.profview import analyze_capture
+    from analyzer_tpu_torch.utils.profiling import trace
+
+    state, sched = _setup(cuda)
+    rate_history(state, sched, CFG, kernel="fused", stop_after=32)  # warm
+    torch.cuda.synchronize()
+    fw.launches = 0
+    with trace(str(tmp_path)):
+        rate_history(state, sched, CFG, kernel="fused", stop_after=32)
+    launches = fw.launches
+    att = analyze_capture(str(tmp_path), update_metrics=False)
+    assert att["parsed"] is True, att["error"]
+    assert att["device"]["lanes"] >= 1 and att["device"]["busy_us"] > 0
+    kernels = {k["name"]: k for k in att["kernels"]}
+    fused = [k for name, k in kernels.items() if "fused_window" in name]
+    assert len(fused) == 1 and fused[0]["count"] == launches > 0
+    # Host events (operators, runtime calls) never land in the device table.
+    assert not any(name.startswith(("aten::", "cuda")) for name in kernels)
+    assert att["compile"]["compile_us"] == 0.0

@@ -12,7 +12,9 @@ tolerance of ``tests/test_torch_stream.py`` (rtol 2e-6, atol 2e-3; see
 ``tests/test_torch_sql_store.py`` for why). The JAX Worker runs with
 ``slo_plane=False, quality=False``: both planes are observers (the JAX
 package pins its results bit-identical with them on or off) and the port
-does not have them yet (ROADMAP A16).
+does not have them yet (ROADMAP A16b). The device profiler
+(``profile_dir``) is ported: ``TestDeviceProfilerWorker`` holds its
+requests and capture windows to the JAX worker's.
 
 The JAX package's ``TestCompileChurn`` has no counterpart here: it counts
 XLA recompiles of the service scan, and nothing in the port is jitted, so
@@ -457,7 +459,6 @@ class TestRefusals:
     @pytest.mark.parametrize("kw,item", [
         (dict(obs_port=0), "A16"),
         (dict(flight_dir="x"), "A16"),
-        (dict(profile_dir="x"), "A16"),
         (dict(audit=True), "A16"),
         (dict(slo_plane=True), "A16"),
         (dict(quality=True), "A16"),
@@ -483,7 +484,6 @@ class TestRefusals:
     @pytest.mark.parametrize("argv,item", [
         (("--obs-port", "0"), "A16"),
         (("--flight-dir", "x"), "A16"),
-        (("--profile-dir", "x"), "A16"),
         (("--audit",), "A16"),
         (("--serve-shards", "2"), "A11b"),
     ])
@@ -504,6 +504,14 @@ class TestRefusals:
         with pytest.raises(ImportError):
             cli.main(["worker", "--device", "cpu"])
 
+    def test_worker_profile_dir_is_accepted(self, monkeypatch, tmp_path):
+        # No longer refused: the flag reaches the consume loop, which then
+        # needs pika like any other worker run.
+        monkeypatch.delenv("DATABASE_URI", raising=False)
+        monkeypatch.setitem(sys.modules, "pika", None)
+        with pytest.raises(ImportError):
+            cli.main(["worker", "--profile-dir", str(tmp_path), "--device", "cpu"])
+
     @pytest.mark.parametrize("argv,text", [
         (("--db-write", "--csv", "x.csv"), "--db-write requires --db"),
         (("--db", "sqlite:///x.db", "--db-write", "--stop-after-steps", "2"),
@@ -523,6 +531,178 @@ class TestRefusals:
         path = synth_db(str(tmp_path / "h.db"), n=20, p=12)
         assert cli.main(["rate", "--db", f"sqlite:///{path}"]) == 2
         assert "CUDA" in capsys.readouterr().err
+
+
+class TestDeviceProfilerWorker:
+    """The worker's device profiler (obs/prof.py) against the JAX
+    worker's: the same requests on the same events, and a capture window
+    around the next batch's dispatch that ``cli profile`` parses."""
+
+    @pytest.fixture(autouse=True)
+    def fresh_profilers(self):
+        from analyzer_tpu.obs import prof as jax_prof
+        from analyzer_tpu_torch.obs import prof
+
+        prof.reset_device_profiler()
+        jax_prof.reset_device_profiler()
+        yield
+        prof.reset_device_profiler()
+        jax_prof.reset_device_profiler()
+
+    def test_profile_dir_arms_the_process_profiler(self, tmp_path):
+        w = make_worker(PORT, InMemoryBroker(), InMemoryStore(),
+                        dict(batch_size=8), profile_dir=str(tmp_path))
+        assert w.profiler.armed and w.profiler.profile_dir == str(tmp_path)
+        assert w.profiler.capture_info()["captures"] == 0
+        w.close()
+
+    @pytest.mark.parametrize("side", [PORT, JAX])
+    def test_dead_letter_requests_capture(self, side, tmp_path):
+        w = make_worker(side, broker_of(side), InMemoryStore() if side == PORT
+                        else JaxInMemoryStore(), dict(batch_size=2,
+                                                      idle_timeout=0.0),
+                        profile_dir=str(tmp_path))
+        w.broker.inner.publish("analyze", b"missing-match")
+        w.queue = w.broker.inner.get("analyze", 2)
+        w._dead_letter(w.queue)
+        assert w.profiler._pending == "dead_letter"
+        w._disable_pipeline("test")
+        assert w.profiler._pending == "pipeline_degraded"
+        w.close()
+
+    def test_sigusr2_forces_a_request(self, tmp_path):
+        w = make_worker(PORT, InMemoryBroker(), InMemoryStore(),
+                        dict(batch_size=8))
+        w._on_sigusr2()  # unarmed: ignored
+        assert w.profiler._pending is None
+        w.profiler.configure(profile_dir=str(tmp_path))
+        w._on_sigusr2()
+        assert w.profiler._pending == "sigusr2"
+        w.close()
+
+    @pytest.mark.parametrize("pipeline", [False, True])
+    def test_requested_capture_wraps_the_next_batch(self, tmp_path, capsys,
+                                                    pipeline):
+        store, ids, _players = mem_history(InMemoryStore)
+        broker = InMemoryBroker()
+        w = make_worker(PORT, broker, store,
+                        dict(batch_size=16, idle_timeout=0.0),
+                        pipeline=pipeline, profile_dir=str(tmp_path))
+        assert w.profiler.request("sigusr2", force=True)
+        for mid in ids:
+            broker.publish("analyze", mid.encode())
+        for _ in range(10 * len(ids)):
+            if not w.poll() and broker.qsize("analyze") == 0:
+                break
+        w.drain()
+        w.close()
+        assert w.matches_rated == len(ids)
+        assert w.profiler.captures == 1  # the latch clears after one window
+        cap = w.profiler.last_capture
+        man = json.load(open(os.path.join(cap, "manifest.json")))
+        assert man["reason"] == "sigusr2" and man["matches"] == 16
+        assert man["device"] == {"platform": "cpu", "device_kind": ""}
+        capsys.readouterr()
+        assert cli.main(["profile", cap, "--json"]) == 0
+        att = json.loads(capsys.readouterr().out)
+        assert att["parsed"] is True and att["manifest"] == man
+        assert att["trace_files"][0].startswith(os.path.join("plugins", "profile"))
+
+
+    def test_bench_loop_asks_for_captures(self, tmp_path):
+        from analyzer_tpu_torch.experiments.service_bench import run_loop
+
+        store, ids, _players = mem_history(InMemoryStore)
+        broker = InMemoryBroker()
+        w = make_worker(PORT, broker, store, dict(batch_size=16, idle_timeout=0.0),
+                        profile_dir=str(tmp_path))
+        got = run_loop(w, broker, ids, "analyze", capture_at=(1,))
+        w.close()
+        assert w.matches_rated == len(ids) and got["batches"] > 2
+        assert w.profiler.captures == 1 and "bench" in w.profiler.last_capture
+        assert got["polls_from"] <= got["polls_to"]
+
+
+class TestCausalTrace:
+    """``obs/tracectx`` in the worker against the JAX worker's: with tracing
+    on, the same batches assemble the same members, every stage of each
+    batch's chain is present in both packages' exports, ``cli trace``
+    reconstructs the port's export, and a device capture of one batch
+    joins its host trace through the manifest's batch id."""
+
+    @pytest.fixture(autouse=True)
+    def tracing(self):
+        from analyzer_tpu.obs import tracectx as jax_tracectx
+        from analyzer_tpu.obs.tracer import reset_tracer as jax_reset_tracer
+        from analyzer_tpu_torch.obs import prof, reset_tracer, tracectx
+
+        for ctx in (tracectx, jax_tracectx):
+            ctx.enable_tracing(True)
+        reset_tracer()
+        jax_reset_tracer()
+        yield
+        for ctx in (tracectx, jax_tracectx):
+            ctx.enable_tracing(False)
+        prof.reset_device_profiler()
+
+    def _events(self, side, pipeline):
+        from analyzer_tpu.obs import get_tracer as jax_get_tracer
+        from analyzer_tpu_torch.obs import get_tracer
+
+        run_mem(side, dict(batch_size=16, idle_timeout=0.0), _publish_with_notify,
+                pipeline=pipeline)
+        return (get_tracer() if side == PORT else jax_get_tracer()).events()
+
+    @pytest.mark.parametrize("pipeline", [False, True])
+    def test_batches_and_stages_equal_jax(self, pipeline):
+        from analyzer_tpu.obs.traceview import build_model as jax_build_model
+        from analyzer_tpu_torch.obs.traceview import batch_report, build_model
+
+        port = build_model(self._events(PORT, pipeline))
+        jax = jax_build_model(self._events(JAX, pipeline))
+        assert len(port.batches) == len(jax.batches) > 1
+
+        def members(model):
+            return sorted(tuple(bt.members) for bt in model.batches.values())
+
+        assert members(port) == members(jax)
+        for bt in port.batches.values():
+            stages = {k for k, v in batch_report(bt)["stages_ms"].items()
+                      if v is not None}
+            # encode, pack, dispatch, fetch, commit and the serve-less
+            # publish lag (None): the chain of a batch, every thread's.
+            assert {"encode", "pack", "dispatch", "commit"} <= stages
+            if not pipeline:
+                assert {"feed_staging", "h2d", "fetch"} <= stages
+
+    def test_cli_trace_and_profile_join_the_worker_export(self, tmp_path, capsys):
+        from analyzer_tpu_torch.obs import get_tracer, write_chrome_trace
+
+        store, ids, _players = mem_history(InMemoryStore)
+        broker = InMemoryBroker()
+        w = make_worker(PORT, broker, store, dict(batch_size=16, idle_timeout=0.0),
+                        profile_dir=str(tmp_path))
+        for mid in ids:
+            broker.publish("analyze", mid.encode())
+        w.poll()  # first batch: no capture
+        w.profiler.request("sigusr2", force=True)
+        while w.poll():
+            pass
+        w.close()
+        export = str(tmp_path / "worker.jsonl")
+        assert write_chrome_trace(export, get_tracer()) > 0
+        assert cli.main(["trace", export, "--json"]) == 0
+        cp = json.loads(capsys.readouterr().out)
+        assert cp["batches"] == w.batches_ok and cp["dominant_stage"]
+        man = w.profiler.last_manifest
+        assert man["batches"] and man["batches"][0].startswith("b")
+        assert cli.main(["profile", w.profiler.last_capture, "--trace-events",
+                         export, "--json"]) == 0
+        d = json.loads(capsys.readouterr().out)["dispatch_decomposition"]
+        # --trace-events loads as a forest: batch ids carry the file's label.
+        assert d["scope"] == "manifest"
+        assert d["batches"] == [f"worker:{b}" for b in man["batches"]]
+        assert d["dispatch_ms"] > 0
 
 
 class TestPikaAdapter:
