@@ -1,5 +1,5 @@
 """Command-line interface of the port: ``python -m analyzer_tpu_torch.cli
-synth | rate | serve | query | worker | metrics | trace | profile``.
+synth | rate | serve | query | worker | bench | metrics | trace | profile``.
 
 Counterparts of the same subcommands of ``analyzer_tpu.cli``, with the JAX
 package's flags, defaults, error texts (exit 2) and JSON lines.
@@ -42,12 +42,18 @@ timelines from a trace-events export, and ``profile`` attributes a
 capture directory's device time per kernel; each has the JAX package's
 flags, exit codes and JSON.
 
-``rate``, ``serve`` and ``worker`` run on the card (``--device cuda``, the
-default) and refuse to start where there is none; ``--device cpu`` runs
-them on the CPU. Not ported yet, each exiting 2 with its ROADMAP item:
-``synth --telemetry`` (A12), ``rate --mesh`` (A14), ``rate --obs-port``
-and ``worker --obs-port/--flight-dir/--audit`` (A16b, the live obs
-planes), ``serve --shards N>1`` and ``worker --serve-shards N>1`` (A11b).
+``bench`` is the headline capture (:mod:`analyzer_tpu_torch.bench`: the
+BENCH line, or with ``--ingest`` the ingest line), with the JAX package's
+flags routed into the same env knobs.
+
+``rate``, ``serve``, ``worker`` and ``bench`` run on the card (``--device
+cuda``, the default) and refuse to start where there is none; ``--device
+cpu`` runs them on the CPU. Not ported yet, each exiting 2 with its ROADMAP
+item: ``synth --telemetry`` (A12), ``rate --mesh`` and ``BENCH_MESH`` (A14),
+``rate --obs-port``, ``bench --obs-port``, ``worker
+--obs-port/--flight-dir/--audit`` and bench's watchdog/federate knobs
+(A16b, the live obs planes), ``bench --migrate`` (A13), ``serve --shards
+N>1`` and ``worker --serve-shards N>1`` (A11b).
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ import numpy as np
 from analyzer_tpu_torch.utils.profiling import PhaseTimer, trace
 
 #: ROADMAP items the refused flags wait for.
+A13 = "ROADMAP A13, migration"
 A14 = "ROADMAP A14, parallel"
 A16B = "ROADMAP A16b, the live obs planes"
 
@@ -703,6 +710,36 @@ def cmd_profile(args) -> int:
     return 0 if att["parsed"] else 1
 
 
+def cmd_bench(args) -> int:
+    """The headline capture (:mod:`analyzer_tpu_torch.bench`). The flags
+    ride the env, as the JAX package's ``cli bench`` routes them into
+    bench.py's knobs, so ``cli bench --kernel ...`` and a bare
+    ``BENCH_KERNEL=...`` run stay one code path."""
+    from analyzer_tpu_torch import bench
+
+    why = bench.refusal(args.obs_port, args.migrate)
+    if why is not None:
+        print(f"error: {why}", file=sys.stderr)
+        return 2
+    device = _resolve_device(args, "run the benchmark")
+    if device is None:
+        return 2
+    if args.kernel:
+        os.environ["BENCH_KERNEL"] = args.kernel
+    if args.fuse_window:
+        os.environ["BENCH_FUSE_WINDOW"] = str(args.fuse_window)
+    if args.hot_rows:
+        os.environ["BENCH_HOT_ROWS"] = str(args.hot_rows)
+    if args.ingest:
+        os.environ["BENCH_INGEST"] = "1"
+    if args.profile:
+        os.environ["BENCH_PROFILE"] = "1"
+    if args.profile_dir:
+        os.environ["BENCH_PROFILE_DIR"] = args.profile_dir
+    bench.main(metrics_out=args.metrics_out, device=device)
+    return 0
+
+
 def cmd_worker(args) -> int:
     """The broker-consuming service loop (``service.worker.main``), or with
     ``--requeue-failed`` the dead-letter redrive. Both need pika and a
@@ -974,6 +1011,62 @@ def build_parser() -> argparse.ArgumentParser:
         "without a card) or cpu",
     )
     s.set_defaults(fn=cmd_worker)
+
+    s = sub.add_parser("bench", help="headline throughput benchmark")
+    s.add_argument(
+        "--metrics-out", metavar="PATH",
+        help="also write the full telemetry snapshot as JSON (the BENCH "
+        "line embeds the phase breakdown either way)",
+    )
+    s.add_argument(
+        "--obs-port", type=int, metavar="PORT",
+        help=f"not ported yet ({A16B}): exits 2",
+    )
+    s.add_argument(
+        "--kernel", choices=("reference", "fused"),
+        help="headline kernel (default: BENCH_KERNEL env, else fused). "
+        "'fused' times BOTH kernels and embeds a `fused` block with "
+        "min_over_reference in the BENCH line",
+    )
+    s.add_argument(
+        "--fuse-window", type=int, metavar="K",
+        help="fused window size (default: BENCH_FUSE_WINDOW env, else 16)",
+    )
+    s.add_argument(
+        "--hot-rows", type=int, metavar="N",
+        help="also capture the tiered-table line with an N-row hot set "
+        "(BENCH_HOT_ROWS env): the BENCH line gains a `tiered` block — "
+        "hit rate, promotion bytes, min_over_resident",
+    )
+    s.add_argument(
+        "--ingest", action="store_true",
+        help="capture the wire-speed ingest line instead (BENCH_INGEST "
+        "env): columnar windowed decode into the staging arena's slabs + "
+        "per-window H2D through the prefetch ring (bytes/s, "
+        "queue-to-H2D p99, arena hit rate)",
+    )
+    s.add_argument(
+        "--migrate", action="store_true",
+        help=f"not ported yet ({A13}): exits 2",
+    )
+    s.add_argument(
+        "--profile", action="store_true",
+        help="capture one device-only run of the headline kernel under "
+        "torch.profiler (BENCH_PROFILE env): the `roofline` block then "
+        "divides by MEASURED device-busy time and gains device_idle_frac, "
+        "and the line gains a `profile` block",
+    )
+    s.add_argument(
+        "--profile-dir", metavar="DIR",
+        help="where --profile writes its capture dirs "
+        "(BENCH_PROFILE_DIR env; default: a temp directory)",
+    )
+    s.add_argument(
+        "--device", default="cuda",
+        help="torch device to bench on (default cuda: the card; exits 2 "
+        "where none is visible)",
+    )
+    s.set_defaults(fn=cmd_bench)
 
     s = sub.add_parser(
         "metrics",

@@ -1,7 +1,8 @@
 """Match-stream files: CSV text and npz binary.
 
 The port's copy of ``analyzer_tpu.io.csv_codec``; a file written by either
-package reads into equal arrays in the other. One CSV row per match:
+package reads into equal arrays in the other. Paths parse through the
+native scanner (``io/_native_csv.py``) where it builds. One CSV row per match:
 ``match_id,mode,winner,afk,team0,team1`` where the team columns are
 ``;``-separated player ids. Mode is the reference's game-mode string
 (``rater.py:70-82``); unknown strings map to ``UNSUPPORTED_MODE_ID`` and are
@@ -19,6 +20,7 @@ import csv
 import numpy as np
 
 from analyzer_tpu_torch.core import constants
+from analyzer_tpu_torch.logging_utils import get_logger
 from analyzer_tpu_torch.sched.superstep import MatchStream
 
 HEADER = ("match_id", "mode", "winner", "afk", "team0", "team1")
@@ -89,11 +91,45 @@ def load_stream(path: str) -> MatchStream:
 
 
 def load_stream_csv(path_or_file) -> MatchStream:
-    """Parses a CSV stream from a path or an open text file."""
+    """Parses a CSV stream from a path or an open text file.
+
+    A path takes the native single-pass scanner (``csrc/fastcsv.cc``,
+    built at first use), as the JAX package's loader does; the python
+    ``csv`` parser takes what the scanner refuses (quoted fields, stray
+    columns) and every stream when the scanner cannot be built — the
+    latter logged once per process. Either way the arrays are equal bit
+    for bit. An open file always goes through the python parser."""
     if isinstance(path_or_file, str):
+        try:
+            from analyzer_tpu_torch.io import _native_csv
+
+            with open(path_or_file, "rb") as f:
+                parsed = _native_csv.parse_stream_csv(
+                    f.read(), list(constants.MODES), max_team=16
+                )
+            if parsed is not None:
+                player_idx, winner, mode_id, afk = parsed
+                return MatchStream(
+                    player_idx=player_idx, winner=winner, mode_id=mode_id, afk=afk
+                )
+        except ImportError as e:
+            _log_fallback_once(e)
         with open(path_or_file, newline="") as f:
             return _parse(f)
     return _parse(path_or_file)
+
+
+_fallback_logged = False
+
+
+def _log_fallback_once(err: ImportError) -> None:
+    global _fallback_logged
+    if not _fallback_logged:
+        _fallback_logged = True
+        get_logger(__name__).warning(
+            "native CSV scanner unavailable, parsing with the python csv "
+            "module instead: %s", err,
+        )
 
 
 def _parse(f) -> MatchStream:

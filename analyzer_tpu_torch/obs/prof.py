@@ -179,7 +179,9 @@ class DeviceProfiler:
     def maybe_capture(self, context: dict | None = None):
         """Wraps one dispatch window: a no-op unless a request is pending,
         else the block runs under ``torch.profiler`` into a fresh
-        ``profile-<ts>-<reason>-<pid>`` directory with a ``manifest.json``
+        ``profile-<ts>-<reason>-<pid>`` directory (``-<n>`` appended when
+        an earlier window of the same second took that name) with a
+        ``manifest.json``
         naming the reason, wall window, dispatch-window ordinal, the
         trace/batch ids in flight (the thread-bound trace id plus whatever
         the dispatch site passes in ``context``) and the device, so
@@ -202,7 +204,18 @@ class DeviceProfiler:
         started = False
         manifest: dict | None = None
         try:
-            os.makedirs(path, exist_ok=True)
+            # Two windows of one reason within the same second (consecutive
+            # batches) would share the name: the later one gets "-2", "-3"
+            # so each capture keeps its own directory and manifest.
+            os.makedirs(self.profile_dir, exist_ok=True)
+            base, n = path, 1
+            while True:
+                try:
+                    os.mkdir(path)
+                    break
+                except FileExistsError:
+                    n += 1
+                    path = f"{base}-{n}"
             _start_trace(path)
             started = True
             manifest = self._manifest_start(reason, path, context)

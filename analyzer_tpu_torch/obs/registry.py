@@ -9,7 +9,8 @@ the service shell's ``worker.*`` and ``broker.*`` under the JAX names, and
 the SQL store's native-scanner counters ``sql.*`` (the port's own), and
 the rating path's ``sched.*``, ``feed.*``, ``device.*``, ``profile.*`` and
 ``phase_seconds`` families (the runners, the prefetching feed, the
-device-memory sampler, the profile attribution, ``utils.profiling``). The
+device-memory sampler, the profile attribution, ``utils.profiling``), and
+the ingest plane's ``ingest.*`` (the columnar decoder, the staging arena). The
 JAX package has no ``pipeline.*`` series: its pipelined engine reports
 through the ``worker.pipeline_*`` gauges, and so does the port's.
 
@@ -240,6 +241,18 @@ STANDARD_COUNTERS = (
     # Profile attribution (obs/profview.py): capture dirs whose device
     # trace parsed end to end.
     "profile.captures_parsed_total",
+    # The wire-speed ingest plane (io/ingest.py + sched/feed.py arena):
+    # columnar windows decoded (bytes/rows/windows), streams the fast
+    # path refused (quoted grammar / no native scanner), arena slab
+    # allocations vs freelist reuses (their ratio is the hit rate), and
+    # H2D commits off the arena.
+    "ingest.bytes_decoded_total",
+    "ingest.rows_decoded_total",
+    "ingest.windows_total",
+    "ingest.fallbacks_total",
+    "ingest.arena_allocs_total",
+    "ingest.arena_reuses_total",
+    "ingest.h2d_commits_total",
 )
 STANDARD_GAUGES = (
     # The tiered table's two budget gauges: the hot-set capacity in rows
@@ -272,6 +285,9 @@ STANDARD_GAUGES = (
     # Device-idle fraction of the last attributed capture window
     # (obs/profview.py).
     "profile.device_idle_frac",
+    # The ingest staging arena's resident bytes (sched/feed.py
+    # PinnedArena — decode slabs + the tiered table's cold tier).
+    "ingest.arena_bytes",
 )
 
 #: Histogram families the runtime emits (labeled series like
@@ -309,6 +325,10 @@ SPAN_CATALOG = (
     "trace.enqueue",
     "batch.assemble",
     "view.publish",
+    # the wire-speed ingest plane: one columnar window's decode into an
+    # arena slab, and its H2D commit off that slab
+    "ingest.decode",
+    "ingest.commit",
 )
 
 #: Distinct labeled series allowed per family (base metric name) before
@@ -383,6 +403,14 @@ SCHEMA_HELP = {
         "device-idle fraction of the last attributed capture window",
     "phase_seconds": "wall seconds per instrumented phase",
     "sched.pack_occupancy": "per-schedule slot occupancy distribution",
+    "ingest.bytes_decoded_total": "bytes decoded by the columnar windows",
+    "ingest.rows_decoded_total": "rows decoded by the columnar windows",
+    "ingest.windows_total": "columnar decode windows completed",
+    "ingest.fallbacks_total": "streams refused by the native fast path",
+    "ingest.arena_allocs_total": "pinned-arena slab allocations",
+    "ingest.arena_reuses_total": "pinned-arena freelist reuses",
+    "ingest.h2d_commits_total": "H2D commits staged off the arena",
+    "ingest.arena_bytes": "pinned staging arena resident bytes",
 }
 
 

@@ -38,11 +38,20 @@ Telemetry, under the JAX package's names:
     id says so.
 
 The counters and spans are per chunk, never per match.
+
+The ingest plane's staging memory lives here too: :class:`PinnedArena`
+leases page-aligned host slabs (pinned where a card is visible) that the
+columnar decoder (``io/ingest.py``) writes match windows into, and
+:func:`stage_ingest_window` copies a decoded window off its slabs to the
+device (``ingest.commit`` span), recycling each slab only once its copy
+has completed. The tiered table's cold tier takes its buffer from the same
+arena (``sched/tier.py``).
 """
 
 from __future__ import annotations
 
 import threading
+import weakref
 from collections import deque
 from typing import NamedTuple
 
@@ -50,12 +59,245 @@ import numpy as np
 import torch
 
 from analyzer_tpu_torch.core import constants
+from analyzer_tpu_torch.device import resolve_device
 from analyzer_tpu_torch.obs import get_registry, get_tracer
 from analyzer_tpu_torch.obs.tracer import bind_trace, current_trace
 from analyzer_tpu_torch.sched.residency import plan_windows
 
 #: Default ring depth: one chunk being dispatched, one staged behind it.
 DEFAULT_DEPTH = 2
+
+#: Page alignment of arena buffers: the DMA engines move whole aligned
+#: pages, and the decoder's slabs start on a page either way.
+ARENA_ALIGNMENT = 4096
+
+
+class PinnedArena:
+    """Reusable page-aligned host staging buffers for the ingest plane.
+
+    The counterpart of ``analyzer_tpu.sched.feed.PinnedArena``, with the
+    same methods and telemetry. Two allocation surfaces share one
+    allocator: :meth:`take` / :meth:`give` lease fixed-shape slabs that the
+    columnar decoder (``io/ingest.py``) writes whole match windows into —
+    steady state reuses them, ~100% — and :meth:`empty` hands out
+    long-lived buffers (the tiered table's cold tier, ``sched/tier.py``).
+
+    Every buffer is a torch tensor cut to an ``ARENA_ALIGNMENT``-aligned
+    start out of a slightly larger allocation, in page-locked memory
+    whenever a CUDA device is visible, and is
+    handed out as a numpy view of that tensor — what the ctypes decoder
+    writes through. :meth:`tensor` returns the owning tensor, which is
+    what a device copy must read: a ``torch.from_numpy`` of the view would
+    not be known as pinned, and its ``non_blocking`` copy would silently
+    be a synchronous pageable one.
+
+    :meth:`commit` is the H2D edge. To a CUDA device it copies the slab's
+    tensor with ``non_blocking=True`` on the current stream and records a
+    CUDA event after the copy; :meth:`give_when_done` returns the slab to
+    the freelist only once that event's ``query()`` reports the copy done,
+    so a recycled slab is never overwritten under an in-flight copy (the
+    arena recycles, never frees, so PyTorch's host allocator — which
+    guards a pinned block only when it is freed — cannot do this for it).
+    To the CPU a commit is a synchronous copy and the release immediate.
+
+    Unlike the JAX package's arena, a buffer whose last reference is
+    dropped (a finished tiered run's cold tier) is forgotten and freed,
+    and ``ingest.arena_bytes`` falls by its size.
+
+    Telemetry: ``ingest.arena_allocs_total`` / ``ingest.arena_reuses_total``
+    counters (their ratio is the hit rate), ``ingest.h2d_commits_total``,
+    and the ``ingest.arena_bytes`` gauge.
+    """
+
+    def __init__(self, name: str = "ingest") -> None:
+        self.name = name
+        self._pin: bool | None = None  # resolved at the first allocation
+        # Reentrant: a buffer's finalizer may run on a thread inside an
+        # arena method (the last reference dropped there).
+        self._lock = threading.RLock()
+        # (shape, dtype str) -> [view, ...] free slabs.
+        self._free: dict[tuple, list] = {}
+        # id(view) -> (key, owning tensor, weakref to the view, pinned).
+        self._live: dict[int, tuple] = {}
+        # id(view) -> the CUDA event recorded after its last commit.
+        self._inflight: dict[int, object] = {}
+        # (event or None, view) pairs whose copy may still be reading.
+        self._deferred: list = []
+        self._nbytes = 0
+        self._pinned: bool | None = None  # resolved by the first commit
+        reg = get_registry()
+        self._allocs = reg.counter("ingest.arena_allocs_total")
+        self._reuses = reg.counter("ingest.arena_reuses_total")
+        self._commits = reg.counter("ingest.h2d_commits_total")
+        self._bytes_gauge = reg.gauge("ingest.arena_bytes")
+
+    @staticmethod
+    def _aligned(shape, dtype, pin: bool) -> torch.Tensor:
+        """A C-contiguous ``shape``/``dtype`` tensor whose data pointer is
+        ARENA_ALIGNMENT-aligned (pinned when ``pin``)."""
+        dt = np.dtype(dtype)
+        nbytes = int(np.prod(shape, dtype=np.int64)) * dt.itemsize
+        base = torch.empty(nbytes + ARENA_ALIGNMENT, dtype=torch.uint8,
+                           pin_memory=pin)
+        off = (-base.data_ptr()) % ARENA_ALIGNMENT
+        tdtype = torch.from_numpy(np.empty(0, dt)).dtype
+        return base[off:off + nbytes].view(tdtype).reshape(tuple(shape))
+
+    def _new(self, key) -> np.ndarray:
+        shape, dtype = key
+        if self._pin is None:
+            self._pin = torch.cuda.is_available()
+        t = self._aligned(shape, dtype, self._pin)
+        view = t.numpy()
+        self._allocs.add(1)
+        self._nbytes += view.nbytes
+        self._bytes_gauge.set(self._nbytes)
+        self._live[id(view)] = (key, t, weakref.ref(view), t.is_pinned())
+        weakref.finalize(view, self._forget, id(view), view.nbytes)
+        return view
+
+    def _forget(self, key_id: int, nbytes: int) -> None:
+        with self._lock:
+            self._live.pop(key_id, None)
+            self._inflight.pop(key_id, None)
+            self._nbytes -= nbytes
+            self._bytes_gauge.set(self._nbytes)
+
+    def _entry(self, buf) -> tuple | None:
+        entry = self._live.get(id(buf))
+        return entry if entry is not None and entry[2]() is buf else None
+
+    def empty(self, shape, dtype) -> np.ndarray:
+        """A long-lived aligned buffer (never enters the freelist unless
+        given) — the tiered table's cold tier and other resident host
+        state. :meth:`tensor` gives its owning tensor."""
+        with self._lock:
+            return self._new((tuple(shape), np.dtype(dtype).str))
+
+    def tensor(self, buf: np.ndarray) -> torch.Tensor:
+        """The torch tensor that owns ``buf``'s memory (pinned with the
+        arena). Raises ValueError for a buffer the arena did not hand out."""
+        with self._lock:
+            entry = self._entry(buf)
+        if entry is None:
+            raise ValueError("buffer was not allocated by this arena")
+        return entry[1]
+
+    def take(self, shape, dtype) -> np.ndarray:
+        """Leases a slab (freelist hit, or a counted fresh allocation).
+        Contents are UNDEFINED — the decoder overwrites every used slot
+        and pads the rest itself."""
+        key = (tuple(shape), np.dtype(dtype).str)
+        with self._lock:
+            self._drain_deferred()
+            free = self._free.get(key)
+            if free:
+                buf = free.pop()
+                self._reuses.add(1)
+                return buf
+            return self._new(key)
+
+    def give(self, buf: np.ndarray) -> None:
+        """Returns a leased slab to the freelist for reuse."""
+        with self._lock:
+            entry = self._entry(buf)
+            if entry is None:
+                return  # not ours — ignore
+            self._free.setdefault(entry[0], []).append(buf)
+
+    def give_when_done(self, buf: np.ndarray, device_array=None) -> None:
+        """Like :meth:`give`, but defers the freelist return until the
+        copy of ``buf``'s last :meth:`commit` (which made ``device_array``)
+        has completed on the card — the safe release for a slab whose H2D
+        copy may still be reading it."""
+        with self._lock:
+            if self._entry(buf) is None:
+                return
+            self._deferred.append((self._inflight.pop(id(buf), None), buf))
+
+    def _drain_deferred(self) -> None:
+        # Lock held. query() is a non-blocking completion probe; a slab
+        # committed to the CPU (or never committed) has no event.
+        still = []
+        for event, buf in self._deferred:
+            if event is None or event.query():
+                entry = self._entry(buf)
+                if entry is not None:
+                    self._free.setdefault(entry[0], []).append(buf)
+            else:
+                still.append((event, buf))
+        self._deferred = still
+
+    @property
+    def pinned(self) -> bool:
+        """True when every commit so far copied a pinned slab to a CUDA
+        device (``Tensor.is_pinned()`` of the slab, read when it was
+        allocated); False before the first commit and on the CPU."""
+        return bool(self._pinned)
+
+    def commit(self, buf: np.ndarray, device=None) -> torch.Tensor:
+        """Copies ``buf`` to ``device`` (None: the card) and returns the
+        device tensor: asynchronous from a pinned slab, with a CUDA event
+        recorded after the copy; synchronous to the CPU. The caller keeps
+        ownership of the slab — pair with :meth:`give_when_done` to
+        recycle it."""
+        dev = resolve_device(device)
+        with self._lock:
+            entry = self._entry(buf)
+        if entry is not None:
+            src, pinned = entry[1], entry[3]
+        else:  # a foreign buffer: pageable
+            src, pinned = torch.from_numpy(np.ascontiguousarray(buf)), False
+        if dev.type == "cuda":
+            out = src.to(dev, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev))
+            ok = pinned
+        else:
+            out = src.clone()
+            event, ok = None, False
+        with self._lock:
+            if entry is not None and event is not None:
+                self._inflight[id(buf)] = event
+            self._pinned = ok if self._pinned is None else (self._pinned and ok)
+        self._commits.add(1)
+        return out
+
+    def stats(self) -> dict:
+        """JSON-ready arena counters (the ingest line's ``arena`` block):
+        allocations, reuses, hit rate, resident bytes, pinned."""
+        allocs = self._allocs.value
+        reuses = self._reuses.value
+        total = allocs + reuses
+        return {
+            "allocs": int(allocs),
+            "reuses": int(reuses),
+            "hit_rate": round(reuses / total, 4) if total else None,
+            "bytes": int(self._nbytes),
+            "pinned": self.pinned,
+        }
+
+
+_arena_lock = threading.Lock()
+_arena: PinnedArena | None = None
+
+
+def get_arena() -> PinnedArena:
+    """The process-wide staging arena (created on first use), shared by
+    the columnar decoder's window slabs and the tiered table's cold tier."""
+    global _arena
+    with _arena_lock:
+        if _arena is None:
+            _arena = PinnedArena()
+        return _arena
+
+
+def reset_arena() -> PinnedArena:
+    """Replaces the process-wide arena with a fresh one (tests)."""
+    global _arena
+    with _arena_lock:
+        _arena = PinnedArena()
+        return _arena
 
 
 class FeedClosedError(RuntimeError):
@@ -234,6 +476,24 @@ def stage_window(pidx, winner, mode_id, afk, pin: bool) -> Slab:
     for arr in (pidx, winner, mode_id, afk):
         slab.add(arr)
     return slab.finish(pin)
+
+
+def stage_ingest_window(win, arena: PinnedArena | None = None, device=None):
+    """The ingest plane's H2D edge: commits one
+    :class:`analyzer_tpu_torch.io.ingest.DecodedWindow`'s column slabs to
+    ``device`` (None: the card) in one ``ingest.commit`` span and hands the
+    slabs back to the arena, each released once its copy has completed.
+    The FULL fixed-width slabs are committed (static shapes) and the live
+    row count rides alongside.
+
+    Returns ``(rows, player_idx, winner, mode_id, afk)``, the last four
+    device tensors."""
+    arena = arena or get_arena()
+    dev = resolve_device(device)
+    with get_tracer().span("ingest.commit", cat="ingest", rows=win.rows):
+        devs = tuple(arena.commit(buf, dev) for buf in win.slabs)
+    win.release(devs)
+    return (win.rows,) + devs
 
 
 class StagedWindow(NamedTuple):

@@ -7,9 +7,10 @@ against. The tier manager turns device memory into a managed cache:
   * a **hot set** — a device-resident ``[H+1, 16]`` table of ``hot_rows``
     slots (rounded up to a power of two, row ``H`` the padding row) — is
     all the rating step and the fused window ever see;
-  * a **cold tier** — the full ``[P+1, 16]`` table as host float32, in
-    page-locked memory when the run is on the card — holds the rest and is
-    the authoritative copy of every non-resident row;
+  * a **cold tier** — the full ``[P+1, 16]`` table as host float32, in a
+    buffer of the process staging arena (page-locked where a card is
+    visible) — holds the rest and is the authoritative copy of every
+    non-resident row;
   * an explicit **page table** (row -> hot slot) is kept on the FEED
     thread: the producer that materializes windows already names every
     window's touched rows, so promotion is planned exactly ``depth`` chunks
@@ -160,14 +161,19 @@ class TierManager:
         self.pad_row = state.pad_row
         self.n_players = state.pad_row
         # The cold tier starts as the caller's full table: one fetch at
-        # entry, the tiered sibling of the untiered path's clone. Pinned on
-        # the card, so demotions and promotions move by DMA.
-        self._host_tensor = torch.empty(
-            state.table.shape, dtype=torch.float32,
-            pin_memory=self.device.type == "cuda",
-        )
+        # entry, the tiered sibling of the untiered path's clone. It lives
+        # in a page-aligned buffer of the process staging arena
+        # (sched/feed.py PinnedArena, the allocator of the ingest decode
+        # slabs too: pinned where a card is visible, counted in
+        # ingest.arena_bytes), as the JAX package's cold tier does; the
+        # values are copied in, so bit-identity is untouched. The
+        # arena's torch tensor over the same memory is the copy's handle.
+        from analyzer_tpu_torch.sched.feed import get_arena
+
+        arena = get_arena()
+        self._host_table = arena.empty(tuple(state.table.shape), np.float32)
+        self._host_tensor = arena.tensor(self._host_table)
         self._host_tensor.copy_(state.table)
-        self._host_table = self._host_tensor.numpy()
         self.capacity = _pow2(max(hot_rows, MIN_HOT_ROWS))
         self.hot_pad = self.capacity
         self._pad_vals = self._host_table[self.pad_row].copy()

@@ -36,7 +36,7 @@ tests in ``tests/test_ingest.py``).
 The port's copy of ``analyzer_tpu.service.columnar``: host numpy
 throughout, with the finished player table built on the device the batch
 is given (``device=None`` = the card). The wire-speed ingest decoder it
-names is not ported yet (ROADMAP A10b).
+names is the port's ``io/ingest.py``.
 """
 
 from __future__ import annotations

@@ -12,8 +12,9 @@ kernel against its plain PyTorch version. Phases, each printing its own
 lines:
 
   1. device: the card's name and power limit;
-  2. build: the two CUDA kernels (nvcc) and the host packer (g++), built
-     from the checkout's sources in parallel; the native packer must load;
+  2. build: the two CUDA kernels (nvcc) and the host packer, sqlite and CSV
+     scanners (g++), built from the checkout's sources in parallel; each
+     must load;
   3. scatter: the scatter-floor experiment
      (``python -m analyzer_tpu_torch.experiments.scatter_floor``) at
      P=1.5M, R=5120, W=16 and 128, with the row-scatter kernel's launches
@@ -115,7 +116,28 @@ lines:
      --trace-events`` joins a capture to it (both exit 0). The poison
      drill's dead letter must leave one capture directory with its
      ``manifest.json``;
- 14. timing: the fused window per window at the main path's shapes
+ 14. bench: ``cli bench --kernel fused --hot-rows 32768 --profile`` in a
+     subprocess at bench's default workload (500,000 matches, 166,666
+     players, conc 0.8, max share 1e-4), ``BENCH_REPEATS=2``: the BENCH line
+     is printed whole, with the fused kernel's launches over the run; it
+     must show both bit-identities (fused = reference, tiered = resident),
+     a roofline whose device time came from the profile with
+     ``fused_window`` the dominant kernel, and ``min_over_reference``,
+     ``streamed.min_over_device`` and the tracing tax;
+ 15. ingest: ``cli bench --ingest`` at its defaults (200,000 matches,
+     windows of 4096 rows), ``BENCH_REPEATS=2``: native decoder, pinned
+     slabs, arena hit rate >= 0.9, ``ingest.fallbacks_total`` 0 in its
+     snapshot; then the 1M prefix written as CSV: ``load_stream_csv``
+     through fastcsv equals the python parser bit for bit, and every
+     decoder window staged onto the card by ``stage_ingest_window`` (the
+     next ones decoded while earlier copies may still run) and fetched
+     back at the end equals its host columns and the parser's rows;
+ 16. oracle: a seeded sample of 256 real matches from the first step of
+     the first 16 fused windows of a [bench]-sized schedule, rated by the
+     CUDA kernel with collect, against the port's 50-digit mpmath oracle
+     (``ops.oracle``): shared and per-mode mu / sigma and the quality
+     within tests/test_oracle.py's relative bounds (1e-5, 1e-4, 1e-5);
+ 17. timing: the fused window per window at the main path's shapes
      (``python -m analyzer_tpu_torch.experiments.window_timing``'s
      measurement: windows cut to 1..16 looped steps for the per-step
      slope, then as the main path calls it, with every step looped, and
@@ -123,7 +145,7 @@ lines:
      [main]'s fused_window by CUDA events x launches beside its profiler
      attribution; one ``{"kernels": [...]}`` line: per kernel its launches on its path
      (the fused window's on the tiered path, the DB lane and the worker
-     phase's ``cli rate --db`` beside them), the error
+     phase's ``cli rate --db`` and [bench]'s run beside them), the error
      against its plain version, its time at its path's shapes beside the
      plain version's, the library call's and the card's bound, and the
      time of its earlier launch pattern measured in this run (the row
@@ -131,7 +153,8 @@ lines:
      looped).
 
 ``--matches``/``--players`` shrink the history for a quick rehearsal on
-the card. The last line is ``{"ok": true, "device": {...}}``. Any failed check raises
+the card (``--db-matches``, ``--worker-matches`` and ``--bench-matches``
+the phases of their name). The last line is ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero without that line; so does a machine without
 a visible CUDA device.
 """
@@ -223,6 +246,19 @@ PEAK_F32_OPS_PER_S = 67e12
 OPS_PER_MATCH = 460
 
 
+# [bench]: cli bench's default workload (500,000 matches), a hot set of
+# 32,768 rows, and two repeats a line to hold the time.
+BENCH_MATCHES = 500_000
+BENCH_HOT_ROWS = 32_768
+BENCH_REPEATS = 2
+# [oracle]: matches drawn from the first step of each of the first
+# ORACLE_WINDOWS fused windows of a [bench]-sized schedule, held to the
+# 50-digit oracle with tests/test_oracle.py's relative bounds.
+ORACLE_WINDOWS = 16
+ORACLE_SAMPLE = 256
+ORACLE_BOUNDS = {"mu": 1e-5, "sigma": 1e-4, "quality": 1e-5}
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -251,6 +287,74 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def oracle_window_samples(table, chunk, views, cfg, n_windows: int) -> list:
+    """Runs the first ``n_windows`` windows of a chunk staged with collect
+    through ``kernels.fused_window`` in order, in place on ``table`` (the
+    CUDA kernel on a card's tensors, its plain version on the CPU's), and
+    returns every real, non-AFK, supported-mode match of each window's
+    first step as ``(pre-window working-set rows, its [2, T] slots,
+    winner, mode_id, its packed output row)``."""
+    from analyzer_tpu_torch.kernels.fused_window import fused_window
+
+    out = []
+    for win in chunk.windows[:n_windows]:
+        slot_rows, slot_idx, winner, mode_id, afk = (views[i] for i in win[:5])
+        rows = slot_rows.long()
+        ws = table.index_select(0, rows)
+        pre = ws.cpu().numpy().copy()  # a copy: ws is updated in place
+        ws, ys = fused_window(ws, slot_idx, winner, mode_id, afk, cfg, True,
+                              n_steps=win.n_steps)
+        table.index_copy_(0, rows, ws)
+        y0, s0 = ys[0].cpu().numpy(), slot_idx[0].cpu().numpy()
+        w0, m0, a0 = (x[0].cpu().numpy() for x in (winner, mode_id, afk))
+        for b in np.flatnonzero((y0[:, 2] > 0.5) & (a0 == 0) & (m0 >= 0)):
+            out.append((pre, s0[b], int(w0[b]), int(m0[b]), y0[b]))
+    return out
+
+
+def oracle_errors(samples, cfg) -> dict:
+    """Worst relative errors of the samples' posteriors against the port's
+    50-digit oracle (``ops.oracle``): shared and per-mode mu and sigma, and
+    the quality (which the reference computes from the mode priors). The
+    priors are the pre-window rows, resolved as ``core.update`` does."""
+    from analyzer_tpu_torch.core.state import COL_SEED_MU, COL_SEED_SIGMA, N_COLS
+    from analyzer_tpu_torch.ops import oracle
+
+    worst = {"mu": 0.0, "sigma": 0.0, "quality": 0.0}
+    for pre, slots, winner, mode, y in samples:
+        t = slots.shape[1]
+        prior = {"sh": ([[], []], [[], []]), "q": ([[], []], [[], []])}
+        where = [[], []]
+        for ti in range(2):
+            for si in range(t):
+                if slots[ti, si] == 0:  # slot 0: the padding row
+                    continue
+                row = pre[slots[ti, si]].astype(np.float64)
+                mu_sh, sg_sh = row[0], row[N_COLS]
+                if np.isnan(mu_sh):
+                    mu_sh, sg_sh = row[COL_SEED_MU], row[COL_SEED_SIGMA]
+                mu_q, sg_q = row[mode + 1], row[N_COLS + mode + 1]
+                if np.isnan(mu_q):
+                    mu_q, sg_q = mu_sh, sg_sh
+                for key, m, sg in (("sh", mu_sh, sg_sh), ("q", mu_q, sg_q)):
+                    prior[key][0][ti].append(float(m))
+                    prior[key][1][ti].append(float(sg))
+                where[ti].append(si)
+        blocks = {"sh": (0, 1), "q": (3, 4)}  # packed blocks of mu, sigma
+        for key, (bm, bs) in blocks.items():
+            om, os_ = oracle.two_team_update(*prior[key], winner, cfg.beta, cfg.tau)
+            got_mu = y[3 + bm * 2 * t: 3 + (bm + 1) * 2 * t].reshape(2, t)
+            got_sg = y[3 + bs * 2 * t: 3 + (bs + 1) * 2 * t].reshape(2, t)
+            for ti in range(2):
+                for j, si in enumerate(where[ti]):
+                    o_mu, o_sg = float(om[ti][j]), float(os_[ti][j])
+                    worst["mu"] = max(worst["mu"], abs(float(got_mu[ti, si]) - o_mu) / abs(o_mu))
+                    worst["sigma"] = max(worst["sigma"], abs(float(got_sg[ti, si]) - o_sg) / abs(o_sg))
+        oq = float(oracle.quality(*prior["q"], cfg.beta))
+        worst["quality"] = max(worst["quality"], abs(float(y[0]) - oq) / max(oq, 1e-12))
+    return worst
 
 
 def smi_line() -> str:
@@ -769,15 +873,16 @@ def rater_phase(dev, cfg) -> None:
         raise AssertionError(f"rate_match gave {mu}, rate_and_apply {want}, want 2052.41")
 
 
-def counted_cli(*argv, timeout=900) -> tuple[dict, dict, float]:
-    """``cli <argv>`` of the port in a subprocess (:data:`COUNTED_CLI`):
-    its stats line, its kernel-launch and native-scanner counts, and its
-    wall seconds."""
+def counted_cli(*argv, timeout=900, env=None) -> tuple[dict, dict, float]:
+    """``cli <argv>`` of the port in a subprocess (:data:`COUNTED_CLI`),
+    with ``env`` added to this process's environment: its stats line, its
+    kernel-launch and native-scanner counts, and its wall seconds."""
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-c", COUNTED_CLI, *argv],
         capture_output=True, text=True, timeout=timeout,
         cwd=os.path.dirname(os.path.abspath(__file__)),
+        env={**os.environ, **(env or {})},
     )
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
@@ -1331,6 +1436,181 @@ def worker_phase(cli, tmp: str, dev, n_matches: int = WORKER_MATCHES) -> dict:
     return {"launches_worker_cli": cli_launches, **captured}
 
 
+def bench_phase(n_matches: int) -> dict:
+    """Phase [bench]: ``cli bench --kernel fused --hot-rows 32768 --profile``
+    in a subprocess at bench's default workload (``n_matches`` matches,
+    a third as many players, conc 0.8, max share 1e-4), two repeats a line.
+    Its BENCH line must carry both bit-identities, a roofline from the
+    profile with ``fused_window`` the dominant kernel, and the ratios the
+    line exists for."""
+    prof_dir = tempfile.mkdtemp(prefix="chip_smoke_bench_prof_")
+    try:
+        line, counts, wall = counted_cli(
+            "bench", "--kernel", "fused", "--hot-rows", str(BENCH_HOT_ROWS),
+            "--profile", "--profile-dir", prof_dir,
+            env={"BENCH_REPEATS": str(BENCH_REPEATS),
+                 "BENCH_MATCHES": str(n_matches)},
+        )
+    finally:
+        shutil.rmtree(prof_dir, ignore_errors=True)
+    log(f"[bench] {json.dumps(line)}")
+    fused, tiered = line["fused"], line["tiered"]
+    profile, roof = line.get("profile") or {}, line["roofline"]
+    log(f"[bench] {n_matches} matches: fused device-only {line['value']:,.1f} "
+        f"matches/s ({fused['min_s']} s), reference {fused['reference_min_s']} s, "
+        f"min_over_reference {fused['min_over_reference']}; streamed "
+        f"min_over_device {line['streamed']['min_over_device']}; tiered "
+        f"min_over_resident {tiered['min_over_resident']} at hit rate "
+        f"{tiered['hit_rate']}; tracing tax "
+        f"{line['trace_overhead']['overhead_pct']}%; profile busy "
+        f"{profile.get('device_busy_s')} s, idle share "
+        f"{profile.get('device_idle_frac')}, dominant {profile.get('dominant_kernel')}; "
+        f"fused_window launches over the run {counts['fused_window_launches']}; "
+        f"wall {wall:.1f} s; device {line['device']}")
+    if fused["bit_identical_to_reference"] is not True:
+        raise AssertionError("[bench]: the fused table differs from the reference's")
+    if tiered["bit_identical_to_resident"] is not True:
+        raise AssertionError("[bench]: the tiered table differs from the resident run's")
+    if roof["device_time_source"] != "profile":
+        raise AssertionError(f"[bench]: roofline from {roof['device_time_source']}, "
+                             "not from the profile")
+    if "fused_window" not in (profile.get("dominant_kernel") or ""):
+        raise AssertionError(f"[bench]: dominant kernel {profile.get('dominant_kernel')}")
+    for block, key in (("fused", "min_over_reference"), ("streamed", "min_over_device"),
+                       ("trace_overhead", "overhead_pct")):
+        if line[block].get(key) is None:
+            raise AssertionError(f"[bench]: {block}.{key} missing")
+    if counts["fused_window_launches"] == 0:
+        raise AssertionError("[bench]: fused_window never launched")
+    return {"launches_bench": counts["fused_window_launches"], "line": line}
+
+
+def ingest_phase(tmp: str, dev, pre) -> None:
+    """Phase [ingest]: ``cli bench --ingest`` at its defaults with two
+    repeats (native decoder, pinned slabs, arena hit rate >= 0.9, no
+    fallback counted); then ``pre`` written as CSV: the native
+    ``load_stream_csv`` must equal the python parser bit for bit, and every
+    decoder window staged onto the card through ``stage_ingest_window`` —
+    the next windows decoded while earlier copies may still run — and
+    fetched back at the end must equal its host columns and the parser's."""
+    from analyzer_tpu_torch.io.csv_codec import _parse, load_stream_csv, save_stream_csv
+    from analyzer_tpu_torch.io.ingest import ColumnarDecoder
+    from analyzer_tpu_torch.sched.feed import PinnedArena, stage_ingest_window
+
+    m_json = os.path.join(tmp, "ingest_metrics.json")
+    line, _counts, wall = counted_cli(
+        "bench", "--ingest", "--metrics-out", m_json,
+        env={"BENCH_REPEATS": str(BENCH_REPEATS)},
+    )
+    with open(m_json) as f:
+        fallbacks = json.load(f)["counters"]["ingest.fallbacks_total"]
+    log(f"[ingest] {json.dumps(line)}")
+    ing, arena_st = line["ingest"], line["arena"]
+    log(f"[ingest] {ing['csv_bytes']} CSV bytes, {ing['windows']} windows of "
+        f"{ing['window_rows']}: {line['value']:,.1f} bytes/s, queue-to-H2D p50 / "
+        f"p99 {line['latency_ms']['p50']} / {line['latency_ms']['p99']} ms, "
+        f"{ing['speedup_over_python']}x the python codec; arena hit rate "
+        f"{arena_st['hit_rate']}, pinned {arena_st['pinned']}; fallbacks "
+        f"{fallbacks}; wall {wall:.1f} s")
+    if not (ing["native"] is True and arena_st["pinned"] is True
+            and arena_st["hit_rate"] >= 0.9 and fallbacks == 0):
+        raise AssertionError(f"[ingest]: native {ing['native']}, pinned "
+                             f"{arena_st['pinned']}, hit rate {arena_st['hit_rate']}, "
+                             f"fallbacks {fallbacks}")
+
+    path = os.path.join(tmp, "prefix.csv")
+    t0 = time.perf_counter()
+    save_stream_csv(path, pre)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fast = load_stream_csv(path)
+    t_fast = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with open(path, newline="") as f:
+        slow = _parse(f)
+    t_slow = time.perf_counter() - t0
+    for key in ("player_idx", "winner", "mode_id", "afk"):
+        a, b = getattr(fast, key), getattr(slow, key)
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"[ingest]: fastcsv {key} differs from the python parser")
+    with open(path, "rb") as f:
+        data = f.read()
+    arena = PinnedArena()
+    staged = []
+    t0 = time.perf_counter()
+    for win in ColumnarDecoder(data, arena=arena).windows():
+        host = [s[: win.rows].copy() for s in win.slabs]
+        staged.append((win.start_row, host, stage_ingest_window(win, arena, dev)))
+    torch.cuda.synchronize()
+    t_stage = time.perf_counter() - t0
+    t = slow.player_idx.shape[2]
+    for start, host, (n, *devs) in staged:
+        for got, want in zip(devs, host):
+            if not np.array_equal(got[:n].cpu().numpy(), want):
+                raise AssertionError(f"[ingest]: window at row {start} differs on the card")
+        if not (np.array_equal(host[0][:, :, :t], slow.player_idx[start:start + n])
+                and np.array_equal(host[1], slow.winner[start:start + n])
+                and np.array_equal(host[2], slow.mode_id[start:start + n])
+                and np.array_equal(host[3].astype(bool), slow.afk[start:start + n])):
+            raise AssertionError(f"[ingest]: window at row {start} differs from the parser")
+    rows = sum(n for _s, _h, (n, *_d) in staged)
+    st = arena.stats()
+    log(f"[ingest] {pre.n_matches} matches as CSV ({len(data)} bytes, written in "
+        f"{t_write:.2f} s): load_stream_csv (fastcsv) {t_fast:.3f} s = python "
+        f"parser ({t_slow:.2f} s) bit for bit; {len(staged)} windows ({rows} rows) "
+        f"staged on the card in {t_stage:.3f} s, fetched back equal to the host "
+        f"columns; arena allocs {st['allocs']}, reuses {st['reuses']}, pinned "
+        f"{st['pinned']}")
+    if rows != pre.n_matches or not st["pinned"]:
+        raise AssertionError(f"[ingest]: {rows} rows staged, pinned {st['pinned']}")
+
+
+def oracle_phase(dev, cfg, n_matches: int) -> dict:
+    """Phase [oracle]: a seeded sample of the real matches of the first step
+    of the first fused windows of a [bench]-sized schedule (the players'
+    rank points and tiers seeding, as bench.py), rated by the CUDA kernel
+    with collect, held to the port's 50-digit oracle
+    (:func:`oracle_errors`) within tests/test_oracle.py's bounds."""
+    from analyzer_tpu_torch.core.state import PlayerState
+    from analyzer_tpu_torch.io.synthetic import synthetic_players, synthetic_stream
+    from analyzer_tpu_torch.sched import pack_schedule
+    from analyzer_tpu_torch.sched.feed import stage_chunk_fused
+    from analyzer_tpu_torch.sched.residency import resolve_fuse
+
+    n_players = max(n_matches // 3, 100)
+    players = synthetic_players(n_players, seed=SEED)
+    stream = synthetic_stream(n_matches, players, seed=SEED,
+                              activity_concentration=0.8, max_activity_share=1e-4)
+    state = PlayerState.create(
+        n_players, players.rank_points_ranked, players.rank_points_blitz,
+        players.skill_tier, cfg=cfg, device=dev,
+    )
+    sched = pack_schedule(stream, pad_row=state.pad_row, windowed=True)
+    chunk = stage_chunk_fused(sched, 0, min(2 * PREFIX_STEPS, sched.n_steps),
+                              resolve_fuse("fused"), True, True)
+    views = chunk.slab.to_device(dev)
+    t0 = time.perf_counter()
+    samples = oracle_window_samples(state.table.clone(), chunk, views, cfg,
+                                    ORACLE_WINDOWS)
+    pick = np.random.default_rng(SEED).choice(
+        len(samples), min(ORACLE_SAMPLE, len(samples)), replace=False
+    )
+    worst = oracle_errors([samples[i] for i in pick], cfg)
+    log(f"[oracle] {len(pick)} of {len(samples)} real matches from the first step "
+        f"of the first {ORACLE_WINDOWS} fused windows ({n_matches} matches, B="
+        f"{sched.batch_size}), the CUDA kernel against the 50-digit oracle: worst "
+        f"relative error mu {worst['mu']:.3e} (bound {ORACLE_BOUNDS['mu']:g}), "
+        f"sigma {worst['sigma']:.3e} (bound {ORACLE_BOUNDS['sigma']:g}), quality "
+        f"{worst['quality']:.3e} (bound {ORACLE_BOUNDS['quality']:g}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if len(pick) < ORACLE_SAMPLE // 2:
+        raise AssertionError(f"[oracle]: only {len(pick)} matches sampled")
+    for key, bound in ORACLE_BOUNDS.items():
+        if not worst[key] < bound:
+            raise AssertionError(f"[oracle]: {key} error {worst[key]} >= {bound}")
+    return worst
+
+
 def cli_sub(*argv) -> subprocess.CompletedProcess:
     """``python -m analyzer_tpu_torch.cli ARGV`` in a subprocess from the
     checkout's root."""
@@ -1399,6 +1679,7 @@ def main(argv=None) -> int:
     ap.add_argument("--players", type=int, default=N_PLAYERS)
     ap.add_argument("--db-matches", type=int, default=DB_MATCHES)
     ap.add_argument("--worker-matches", type=int, default=WORKER_MATCHES)
+    ap.add_argument("--bench-matches", type=int, default=BENCH_MATCHES)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1419,6 +1700,7 @@ def main(argv=None) -> int:
     from analyzer_tpu_torch.serve import ViewPublisher
     from analyzer_tpu_torch.sched.feed import stage_chunk_fused
     from analyzer_tpu_torch.sched.residency import resolve_fuse
+    from analyzer_tpu_torch.io import _native_csv
     from analyzer_tpu_torch.service import _native_sql
     from analyzer_tpu_torch.utils.profiling import trace
 
@@ -1434,7 +1716,8 @@ def main(argv=None) -> int:
 
     # -- 2. build (nvcc and g++ started together) ---------------------------
     build_all((("nvcc fused_window", fw.load), ("nvcc row_scatter", rs.load),
-               ("g++ packer", _native.load), ("g++ fastsql", _native_sql.load)))
+               ("g++ packer", _native.load), ("g++ fastsql", _native_sql.load),
+               ("g++ fastcsv", _native_csv.load)))
     for name, mod in (("fused_window", fw), ("row_scatter", rs)):
         for line in mod.kernel_build_log().splitlines():
             if "registers" in line or "spill" in line:
@@ -1808,7 +2091,16 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # -- 14. kernel times at the main path's shapes (collect off) -------------
+    # -- 14-16. cli bench, the ingest plane, the oracle ----------------------
+    bench_counts = bench_phase(args.bench_matches)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
+    try:
+        ingest_phase(tmp, dev, pre)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    oracle_phase(dev, cfg, args.bench_matches)
+
+    # -- 17. kernel times at the main path's shapes (collect off) -------------
     slope = window_timing.measure(windows)
     for n, r in slope["by_steps"].items():
         log(f"[timing] fused_window, first {n:2d} steps of each window looped: "
@@ -1856,6 +2148,7 @@ def main(argv=None) -> int:
             "launches_tiered": tier_launches,
             "launches_db": db_counts["launches_db"],
             "launches_worker_cli": worker_counts["launches_worker_cli"],
+            "launches_bench": bench_counts["launches_bench"],
             "max_abs_err": worst_abs,
             "ms": ms,
             "plain_ms": plain_ms,

@@ -51,15 +51,18 @@ def test_import_leaves_jax_and_reference_out():
         "             'service.sql_store', 'service._native_sql',\n"
         "             'service.encode', 'service.columnar',\n"
         "             'service.worker', 'service.pipeline',\n"
-        "             'experiments.service_bench'):\n"
+        "             'experiments.service_bench', 'bench', 'ops.oracle',\n"
+        "             'io.ingest', 'io._native_csv'):\n"
         "    assert 'analyzer_tpu_torch.' + name in sys.modules, name\n"
         # importing builds nothing, starts no thread and parses no argv
         "import threading\n"
         "from analyzer_tpu_torch.kernels import fused_window, row_scatter\n"
         "from analyzer_tpu_torch.sched import _native\n"
         "from analyzer_tpu_torch.service import _native_sql\n"
+        "from analyzer_tpu_torch.io import _native_csv\n"
         "assert fused_window._lib is None and row_scatter._lib is None\n"
         "assert _native._lib is None and _native_sql._lib is None\n"
+        "assert _native_csv._lib is None\n"
         "assert threading.active_count() == 1, threading.enumerate()\n"
     )
     proc = subprocess.run(

@@ -8,7 +8,9 @@ the row scatter, one step and a multi-step run in one launch, held against
 pinned memory, a demotion's copy waited on before the cold tier is
 written), the query engine on the card against its oracle, and a
 ``torch.profiler`` capture of the fused path attributed to the kernel on a
-device lane. Every test
+device lane; the ingest plane's pinned staging arena (commit, release only
+after the copy's event, ``stage_ingest_window``), the cold tier on it, and
+a tiny ``cli bench`` on the card. Every test
 needs a CUDA device (marker
 ``cuda``) and skips with a reason without one. On the card, where JAX is
 not installed, run them without the suite's conftest:
@@ -516,3 +518,109 @@ def test_trace_capture_finds_fused_window_on_a_device_lane(cuda, tmp_path):
     # Host events (operators, runtime calls) never land in the device table.
     assert not any(name.startswith(("aten::", "cuda")) for name in kernels)
     assert att["compile"]["compile_us"] == 0.0
+
+
+# -- the ingest plane and cli bench on the card ----------------------------
+
+
+def test_arena_slab_round_trips_through_commit_and_is_pinned(cuda):
+    """A slab of the staging arena is page-aligned pinned memory (its owning
+    tensor says so, not an assumption), and ``commit`` copies it to the card
+    asynchronously and faithfully."""
+    from analyzer_tpu_torch.sched.feed import ARENA_ALIGNMENT, PinnedArena
+
+    arena = PinnedArena()
+    buf = arena.take((4096, 2, 16), np.int32)
+    assert buf.ctypes.data % ARENA_ALIGNMENT == 0
+    assert arena.tensor(buf).is_pinned()
+    buf[:] = np.arange(buf.size, dtype=np.int32).reshape(buf.shape)
+    dev = arena.commit(buf)  # device=None: the card
+    assert dev.is_cuda
+    np.testing.assert_array_equal(dev.cpu().numpy(), buf)
+    assert arena.stats()["pinned"] is True
+
+
+def test_give_when_done_recycles_only_after_the_copy(cuda):
+    """A slab handed back while its copy is still queued behind a long
+    kernel is NOT reused; once the copy has completed (synchronized here,
+    before asserting) it is, and the copied values are the slab's."""
+    from analyzer_tpu_torch.sched.feed import PinnedArena
+
+    arena = PinnedArena()
+    shape = (1 << 20,)
+    buf = arena.take(shape, np.int32)
+    buf[:] = np.arange(shape[0], dtype=np.int32)
+    torch.cuda._sleep(1_000_000_000)  # ~0.5 s of GPU time ahead of the copy
+    dev = arena.commit(buf)
+    arena.give_when_done(buf, dev)
+    other = arena.take(shape, np.int32)
+    assert other is not buf  # its copy is still in flight
+    torch.cuda.synchronize()
+    assert arena.take(shape, np.int32) is buf
+    np.testing.assert_array_equal(dev.cpu().numpy(), np.arange(shape[0]))
+
+
+def test_stage_ingest_window_equals_host_columns_on_card(cuda):
+    import io as _io
+    import os
+    import tempfile
+
+    from analyzer_tpu_torch.io.csv_codec import _parse, save_stream_csv
+    from analyzer_tpu_torch.io.ingest import ColumnarDecoder
+    from analyzer_tpu_torch.sched.feed import PinnedArena, stage_ingest_window
+
+    players = synthetic_players(500, seed=4)
+    stream = synthetic_stream(3000, players, seed=4, afk_rate=0.1,
+                              unsupported_rate=0.05)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "s.csv")
+        save_stream_csv(path, stream)
+        with open(path, "rb") as f:
+            data = f.read()
+    ref = _parse(_io.StringIO(data.decode()))
+    t = ref.player_idx.shape[2]
+    arena = PinnedArena()
+    rows = 0
+    for win in ColumnarDecoder(data, window_rows=256, arena=arena).windows():
+        host = [s.copy() for s in win.slabs]
+        n, pidx, winner, mode_id, afk = stage_ingest_window(win, arena)
+        for got, want in zip((pidx, winner, mode_id, afk), host):
+            assert got.is_cuda
+            np.testing.assert_array_equal(got.cpu().numpy()[:n], want[:n])
+        np.testing.assert_array_equal(pidx.cpu().numpy()[:n, :, :t],
+                                      ref.player_idx[rows:rows + n])
+        rows += n
+    assert rows == 3000
+    assert arena.stats()["pinned"] is True
+
+
+def test_cold_tier_on_card_is_pinned_arena_memory(cuda):
+    from analyzer_tpu_torch.sched.feed import get_arena
+    from analyzer_tpu_torch.sched.tier import TierManager
+
+    state, _ = _setup(cuda)
+    tm = TierManager(state, hot_rows=64)
+    assert tm._host_tensor.is_pinned()
+    assert get_arena().tensor(tm._host_table) is tm._host_tensor
+    np.testing.assert_array_equal(tm._host_table, state.table.cpu().numpy())
+
+
+def test_cli_bench_tiny_on_card(cuda):
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_MATCHES="3000", BENCH_REPEATS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "analyzer_tpu_torch", "bench", "--kernel",
+         "fused", "--hot-rows", "256"],
+        capture_output=True, text=True, timeout=600, cwd=repo, env=env,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert line["fused"]["bit_identical_to_reference"] is True
+    assert line["tiered"]["bit_identical_to_resident"] is True
+    assert line["device"]["name"] and line["device"]["power_limit"]

@@ -289,6 +289,24 @@ class TestDeviceProfiler:
         assert p.capture_info()["last_manifest"] == man
         assert profview.load_manifest(p.last_capture) == man
 
+    def test_windows_within_one_second_keep_their_own_dirs(self, monkeypatch,
+                                                            tmp_path):
+        p, calls = self._stubbed(monkeypatch, tmp_path, min_interval_s=0.0)
+        monkeypatch.setattr("time.strftime", lambda fmt: "20260101-000000")
+        dirs = []
+        for _ in range(3):
+            assert p.request("bench", force=True)
+            with p.maybe_capture():
+                pass
+            dirs.append(p.last_capture)
+        assert len(set(dirs)) == 3 and p.captures == 3
+        assert [os.path.basename(d) for d in dirs] == [
+            f"profile-20260101-000000-bench-{os.getpid()}{suffix}"
+            for suffix in ("", "-2", "-3")
+        ]
+        for d in dirs:
+            assert profview.load_manifest(d)["dir"] == os.path.basename(d)
+
     def test_real_capture_on_the_cpu(self, tmp_path):
         """Unstubbed: a window around torch work writes the layout, and the
         one-session guard frees itself."""
