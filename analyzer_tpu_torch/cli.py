@@ -1,5 +1,6 @@
 """Command-line interface of the port: ``python -m analyzer_tpu_torch.cli
-synth | rate | serve | query | worker | bench | metrics | trace | profile``.
+synth | rate | serve | query | worker | bench | metrics | trace | profile |
+elo | train | quality``.
 
 Counterparts of the same subcommands of ``analyzer_tpu.cli``, with the JAX
 package's flags, defaults, error texts (exit 2) and JSON lines.
@@ -21,8 +22,13 @@ reads the whole history from a reference-schema database instead of a
 stream file (``SqlStore.load_stream``: the players' DB ratings are the
 priors) and ``--db-write`` writes the final player ratings back.
 
-``synth`` writes a synthetic history as ``.csv``, ``.npz`` or a
-reference-schema sqlite ``.db``.
+``synth`` writes a synthetic history as ``.csv``, ``.npz`` (``--telemetry``
+adds the post-game telemetry block) or a reference-schema sqlite ``.db``.
+
+``elo`` re-rates a stream or database with the Elo model; ``train`` fits
+the logistic or MLP win-probability head on leak-free features with a
+chronological holdout; ``quality`` renders the calibration ledger
+(BASELINE configs 1, 3, 4; :mod:`analyzer_tpu_torch.models`).
 
 ``serve --checkpoint ck.npz`` (or ``--db URI``, the player table of a
 database, served by api id) publishes the table as version 1 and answers
@@ -46,10 +52,10 @@ flags, exit codes and JSON.
 BENCH line, or with ``--ingest`` the ingest line), with the JAX package's
 flags routed into the same env knobs.
 
-``rate``, ``serve``, ``worker`` and ``bench`` run on the card (``--device
-cuda``, the default) and refuse to start where there is none; ``--device
-cpu`` runs them on the CPU. Not ported yet, each exiting 2 with its ROADMAP
-item: ``synth --telemetry`` (A12), ``rate --mesh`` and ``BENCH_MESH`` (A14),
+``rate``, ``serve``, ``worker``, ``bench``, ``elo`` and ``train`` run on the
+card (``--device cuda``, the default) and refuse to start where there is
+none; ``--device cpu`` runs them on the CPU. Not ported yet, each exiting 2
+with its ROADMAP item: ``rate --mesh``, ``train --mesh`` and ``BENCH_MESH`` (A14),
 ``rate --obs-port``, ``bench --obs-port``, ``worker
 --obs-port/--flight-dir/--audit`` and bench's watchdog/federate knobs
 (A16b, the live obs planes), ``bench --migrate`` (A13), ``serve --shards
@@ -124,20 +130,21 @@ def _sync(state) -> None:
 
 def cmd_synth(args) -> int:
     """A synthetic match history: ``.csv``, ``.npz`` (with the players'
-    archetype block, as the JAX package writes it) or a reference-schema
-    sqlite ``.db`` for the DB lanes."""
+    archetype block and, with ``--telemetry``, the post-game telemetry
+    block, as the JAX package writes them) or a reference-schema sqlite
+    ``.db`` for the DB lanes."""
     from analyzer_tpu_torch.io.csv_codec import save_stream
-    from analyzer_tpu_torch.io.synthetic import synthetic_players, synthetic_stream
+    from analyzer_tpu_torch.io.synthetic import (
+        synthetic_players,
+        synthetic_stream,
+        synthetic_telemetry,
+    )
 
     if args.synergy and not args.out.endswith(".npz"):
         # Archetypes ride only in the npz block; a synergy-driven stream
         # whose composition channel can't be saved would train heads
         # against unexplainable outcomes.
         print("error: --synergy requires an .npz output", file=sys.stderr)
-        return 2
-    if args.telemetry:
-        print("error: synth --telemetry is not ported yet (ROADMAP A12, the "
-              "models and their telemetry block)", file=sys.stderr)
         return 2
     players = synthetic_players(args.players, seed=args.seed)
     stream = synthetic_stream(
@@ -146,19 +153,380 @@ def cmd_synth(args) -> int:
         max_activity_share=args.max_share or None,
         synergy_strength=args.synergy,
     )
+    telemetry = None
+    if args.telemetry:
+        if not args.out.endswith(".npz"):
+            print("error: --telemetry requires an .npz output", file=sys.stderr)
+            return 2
+        telemetry = synthetic_telemetry(stream, players, seed=args.seed)
     if args.out.endswith(".db"):
         from analyzer_tpu_torch.io.dbgen import write_history_db
 
         write_history_db(args.out, stream, players)
     else:
         save_stream(
-            args.out, stream,
+            args.out, stream, telemetry=telemetry,
             # npz streams always carry the composition channel, as the JAX
             # package's do.
             archetype=players.archetype if args.out.endswith(".npz") else None,
         )
     print(f"wrote {stream.n_matches} matches / {args.players} players to "
-          f"{args.out}")
+          f"{args.out}" + (" (+telemetry)" if telemetry is not None else ""))
+    return 0
+
+
+def _require_one_source(args) -> bool:
+    """Validates that EXACTLY one of --csv / --db names a source,
+    normalizing empty strings to missing (``--db ""`` must not slip past
+    the xor and crash in the loader). Shared by elo and train."""
+    args.csv = getattr(args, "csv", None) or None
+    args.db = getattr(args, "db", None) or None
+    if (args.csv is None) == (args.db is None):
+        print("error: exactly one of --csv / --db is required",
+              file=sys.stderr)
+        return False
+    return True
+
+
+def _auc(p: np.ndarray, y: np.ndarray) -> float | None:
+    """ROC AUC via the Mann-Whitney U statistic, tie-averaged ranks."""
+    pos = y == 1.0
+    n1, n0 = int(pos.sum()), int((~pos).sum())
+    if n1 == 0 or n0 == 0:
+        return None
+    order = np.argsort(p, kind="mergesort")
+    sp = p[order]
+    first = np.r_[True, sp[1:] != sp[:-1]]
+    grp = np.cumsum(first) - 1
+    counts = np.bincount(grp)
+    starts = np.cumsum(counts) - counts
+    avg = starts + (counts - 1) / 2.0 + 1.0
+    ranks = np.empty(p.size)
+    ranks[order] = avg[grp]
+    return float((ranks[pos].sum() - n1 * (n1 + 1) / 2.0) / (n1 * n0))
+
+
+def _ece(p: np.ndarray, y: np.ndarray, bins: int = 10) -> float:
+    """Expected calibration error over equal-width probability bins."""
+    idx = np.clip((p * bins).astype(int), 0, bins - 1)
+    err = 0.0
+    for b in range(bins):
+        sel = idx == b
+        if sel.any():
+            err += abs(p[sel].mean() - y[sel].mean()) * sel.mean()
+    return float(err)
+
+
+def _half_credit_accuracy(p: np.ndarray, team0_won: np.ndarray) -> float:
+    """Prediction accuracy with exact ties (p == 0.5, e.g. two fresh
+    teams) scoring half credit instead of silently counting as "team 0
+    predicted" — shared by the elo and train evals."""
+    hit = np.where(p == 0.5, 0.5, (p > 0.5) == (team0_won == 1.0))
+    return float(hit.mean())
+
+
+def cmd_elo(args) -> int:
+    """BASELINE config 1: the Elo re-rate of a stream or database over the
+    TrueSkill schedule, with its pre-match prediction accuracy."""
+    from analyzer_tpu_torch.config import RatingConfig
+    from analyzer_tpu_torch.models import elo_history
+    from analyzer_tpu_torch.sched import pack_schedule
+
+    if not _require_one_source(args):
+        return 2
+    device = _resolve_device(args, "elo")
+    if device is None:
+        return 2
+    timer = PhaseTimer()
+    stream, n_players, _, _, _ = _load_inputs(
+        args, RatingConfig.from_env(), timer, device
+    )
+    # Windowed: elo_history reads windows and match_idx only, so the
+    # gather tensors materialize per chunk here too.
+    with timer.phase("pack"):
+        sched = pack_schedule(stream, pad_row=n_players, windowed=True)
+    with timer.phase("rate"):
+        ratings, expected = elo_history(sched, n_players, device=device)
+    ratable = stream.ratable
+    if ratable.any():
+        acc = _half_credit_accuracy(
+            expected[ratable], (stream.winner[ratable] == 0).astype(np.float32)
+        )
+    else:
+        acc = None
+    if args.out:
+        np.savez(args.out, ratings=ratings, expected=expected)
+    print(json.dumps({
+        "matches": stream.n_matches,
+        "players": n_players,
+        "mean_rating": round(float(ratings.mean()), 2),
+        "prediction_accuracy": round(acc, 4) if acc is not None else None,
+        "phases": {k: round(v, 3) for k, v in timer.report().items()},
+    }))
+    return 0
+
+
+def cmd_train(args) -> int:
+    """BASELINE configs 3-4: win-probability heads over rating features.
+
+    Features are leak-free (each match's row comes from the PRE-match
+    rating state during one pass — models/features.py), and the
+    evaluation split is CHRONOLOGICAL: train on the first (1 - eval_frac)
+    of ratable matches, evaluate on the tail, as a deployed predictor sees
+    time. Exact-tie predictions score half credit, as in cmd_elo.
+    ``--mesh`` (data-parallel training) waits for ROADMAP A14."""
+    import torch
+
+    from analyzer_tpu_torch.config import RatingConfig
+    from analyzer_tpu_torch.core.state import PlayerState
+    from analyzer_tpu_torch.models import history_features, train_logistic, train_mlp
+    from analyzer_tpu_torch.models.calibration import apply_temperature, fit_temperature
+    from analyzer_tpu_torch.sched import pack_schedule
+
+    if not (0.0 <= args.eval_frac < 1.0):
+        print("error: --eval-frac must be in [0, 1)", file=sys.stderr)
+        return 2
+    if not _require_one_source(args):
+        return 2
+    if args.telemetry and args.db:
+        print(
+            "error: --telemetry needs an .npz stream (databases carry no "
+            "telemetry block); use --csv", file=sys.stderr,
+        )
+        return 2
+    if args.mesh is not None:
+        print(f"error: train --mesh is not ported yet ({A14}); drop --mesh "
+              "to train on one card", file=sys.stderr)
+        return 2
+    device = _resolve_device(args, "train")
+    if device is None:
+        return 2
+    cfg = RatingConfig.from_env()
+    timer = PhaseTimer()
+    stream, n_players, _, _, _ = _load_inputs(args, cfg, timer, device)
+    # ALWAYS cold-start, even on the DB lane: a database's stored ratings
+    # are usually the END state of rating this very history, so seeding
+    # features from them would leak every match's own outcome into its
+    # "pre-match" features and inflate the chronological holdout.
+    state = PlayerState.create(n_players, cfg=cfg, device=device)
+    with timer.phase("features"):
+        sched = pack_schedule(stream, pad_row=state.pad_row, windowed=True)
+        feats, ratable, _ = history_features(state, sched, cfg, device=device)
+        composition = False
+        if args.csv:
+            # PRE-MATCH composition features (teammate archetype-pair
+            # count differences) when the stream carries the archetype
+            # block — the channel through which a learned head can beat
+            # the rating-only baseline (synth --synergy).
+            from analyzer_tpu_torch.io.csv_codec import load_archetypes
+            from analyzer_tpu_torch.models.features import composition_features
+
+            arch = load_archetypes(args.csv)
+            if arch is not None:
+                feats = np.concatenate(
+                    [feats, composition_features(arch, stream.player_idx)],
+                    axis=1,
+                )
+                composition = True
+        if args.telemetry:
+            # Config 4's full-telemetry head: POST-GAME stats, so this
+            # trains an analysis model (outcome from game stats), not a
+            # forecast.
+            from analyzer_tpu_torch.io.csv_codec import load_telemetry
+            from analyzer_tpu_torch.models.features import telemetry_features
+
+            tel = load_telemetry(args.csv)
+            if tel is None:
+                print(
+                    "error: --telemetry needs an .npz stream with a "
+                    "telemetry block (synth --telemetry)", file=sys.stderr,
+                )
+                return 2
+            try:
+                tfeat = telemetry_features(tel, stream.player_idx)
+            except ValueError as err:  # e.g. an older-schema npz
+                print(f"error: {err}", file=sys.stderr)
+                return 2
+            feats = np.concatenate([feats, tfeat], axis=1)
+    y = (stream.winner == 0).astype(np.float32)
+    rows = np.flatnonzero(ratable)  # stream order
+    if rows.size < 10:
+        print("error: too few ratable matches to train on", file=sys.stderr)
+        return 2
+    cut = max(1, int(rows.size * (1.0 - args.eval_frac)))
+    tr, ev = rows[:cut], rows[cut:]
+    # Reserve the chronological tail of the train split for temperature
+    # calibration — rows the model never fits. Too-small splits fall back
+    # to fitting on (and calibrating from) everything.
+    cal_cut = int(tr.size * 0.8)
+    if tr.size - cal_cut >= 50:
+        fit, cal = tr[:cal_cut], tr[cal_cut:]
+    else:
+        fit, cal = tr, tr
+    with timer.phase("train"):
+        if args.model == "logistic":
+            model, nll = train_logistic(
+                feats[fit], y[fit], epochs=args.epochs, seed=args.seed,
+                device=device,
+            )
+        else:
+            model, nll = train_mlp(
+                feats[fit], y[fit], hidden=args.hidden,
+                epochs=args.epochs, seed=args.seed, device=device,
+            )
+
+    def logits(rows_):
+        with torch.no_grad():
+            return model.logits(feats[rows_]).cpu().numpy()
+
+    # Temperature-scale on the calibration slice (held out from the fit
+    # above): fixes the head's raw over/under-confidence without touching
+    # its ranking.
+    temperature = fit_temperature(logits(cal), y[cal])
+
+    def _metrics(p, yy):
+        eps = 1e-7
+        auc = _auc(p, yy)  # None on a single-class eval slice
+        return {
+            "accuracy": round(_half_credit_accuracy(p, yy), 4),
+            "logloss": round(float(-np.mean(
+                yy * np.log(p + eps) + (1 - yy) * np.log(1 - p + eps)
+            )), 4),
+            "auc": round(auc, 4) if auc is not None else None,
+            "ece": round(_ece(p, yy), 4),
+        }
+
+    if ev.size:
+        p = apply_temperature(logits(ev), temperature)
+        m = _metrics(p, y[ev])
+        acc, logloss = m["accuracy"], m["logloss"]
+        auc, ece = m["auc"], m["ece"]
+        # The rating-only baseline every head must beat: the closed-form
+        # TrueSkill win probability from the same pre-match state
+        # (feature column 2) with NO learned parameters, on the same split.
+        baseline = _metrics(feats[ev, 2].astype(np.float64), y[ev])
+    else:
+        acc = logloss = auc = ece = baseline = None
+    if args.out:
+        # temperature rides along so artifact consumers reproduce the
+        # reported (calibrated) probabilities; the weights under the JAX
+        # package's names (models.model_from_numpy reads either file).
+        np.savez(
+            args.out,
+            model=args.model,
+            temperature=temperature,
+            **{k: v.detach().cpu().numpy() for k, v in model.named_parameters()},
+        )
+    print(json.dumps({
+        "model": args.model,
+        "matches": stream.n_matches,
+        "composition_features": composition,
+        "trained_on": int(fit.size),
+        "calibrated_on": int(cal.size) if cal is not fit else 0,
+        "eval_on": int(ev.size),
+        "train_nll": round(float(nll), 4),
+        "eval_accuracy": acc,
+        "eval_logloss": logloss,
+        "eval_auc": auc,
+        "eval_ece": ece,
+        "baseline_rating_only": baseline,
+        "temperature": round(temperature, 3),
+        "phases": {k: round(v, 3) for k, v in timer.report().items()},
+    }))
+    return 0
+
+
+def cmd_quality(args) -> int:
+    """Rating-quality report: the calibration ledger's reliability table,
+    streaming Brier / log-loss / ECE and the population-drift verdict —
+    from a server's ``/qualityz`` (``--url``; nothing in the port serves
+    it before ROADMAP A16b), from a saved soak artifact's ``quality``
+    block (``--artifact``), or from this process's own ledger (mostly
+    empty outside a run). ``--fit-temperature`` fits a post-hoc
+    temperature over the live ledger's retained (logit, outcome) prefix
+    (models/calibration.py)."""
+    summary = None
+    if args.url:
+        import urllib.request
+
+        url = args.url.rstrip("/") + "/qualityz"
+        try:
+            with urllib.request.urlopen(url, timeout=10) as resp:
+                summary = json.load(resp)
+        except OSError as err:
+            print(f"error: cannot fetch {url}: {err}", file=sys.stderr)
+            return 2
+        if not summary.get("enabled", True):
+            print(
+                "error: worker runs with the quality ledger disabled",
+                file=sys.stderr,
+            )
+            return 2
+    elif args.artifact:
+        try:
+            with open(args.artifact, encoding="utf-8") as f:
+                artifact = json.load(f)
+        except (OSError, ValueError) as err:
+            print(f"error: cannot read artifact: {err}", file=sys.stderr)
+            return 2
+        summary = artifact.get("quality")
+        if not isinstance(summary, dict):
+            print(
+                "error: artifact has no quality block (soak ran with "
+                "--no-quality?)", file=sys.stderr,
+            )
+            return 2
+    ledger = None
+    if summary is None:
+        from analyzer_tpu_torch.obs.quality import get_quality_ledger
+
+        ledger = get_quality_ledger()
+        if ledger is None:
+            from analyzer_tpu_torch.config import RatingConfig
+            from analyzer_tpu_torch.obs.quality import CalibrationLedger
+
+            ledger = CalibrationLedger(RatingConfig(), mirror=False)
+        summary = ledger.summary()
+    if args.fit_temperature:
+        if ledger is None:
+            print(
+                "error: --fit-temperature needs the live ledger's "
+                "retained (logit, outcome) pairs — /qualityz and the "
+                "artifact carry only their count", file=sys.stderr,
+            )
+            return 2
+        from analyzer_tpu_torch.models.calibration import fit_temperature
+
+        z, y = ledger.retained()
+        if not z.size:
+            print(
+                "error: no retained (logit, outcome) pairs to fit",
+                file=sys.stderr,
+            )
+            return 2
+
+        def _nll(t: float) -> float:
+            zz = np.clip(z / t, -30.0, 30.0)
+            p = 1.0 / (1.0 + np.exp(-zz))
+            eps = 1e-12
+            return float(-np.mean(
+                y * np.log(p + eps) + (1.0 - y) * np.log(1.0 - p + eps)
+            ))
+
+        t = fit_temperature(z, y)
+        summary["temperature"] = {
+            "t": round(float(t), 4),
+            "nll_before": round(_nll(1.0), 6),
+            "nll_after": round(_nll(float(t)), 6),
+            "n": int(z.size),
+        }
+    if args.json:
+        json.dump(summary, sys.stdout, indent=1, sort_keys=True)
+        sys.stdout.write("\n")
+        return 0
+    from analyzer_tpu_torch.obs.quality import render_quality
+
+    sys.stdout.write(render_quality(summary))
     return 0
 
 
@@ -808,8 +1176,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     s.add_argument(
         "--telemetry", action="store_true",
-        help="post-game telemetry for the analysis head (not ported yet: "
-        "ROADMAP A12)",
+        help="also generate post-game telemetry (K/D/A, gold, cs) for the "
+        "config-4 analysis head (.npz only)",
     )
     s.add_argument(
         "--synergy", type=float, default=0.0, metavar="STRENGTH",
@@ -1137,6 +1505,84 @@ def build_parser() -> argparse.ArgumentParser:
     )
     s.add_argument("--json", action="store_true", help="JSON output")
     s.set_defaults(fn=cmd_profile)
+
+    s = sub.add_parser(
+        "train",
+        help="win-probability heads (logistic/MLP) on leak-free rating "
+        "features, chronological holdout eval",
+    )
+    s.add_argument("--csv", help="match stream, .csv or .npz")
+    s.add_argument(
+        "--db", metavar="URI",
+        help="train on a full history ingested straight from a database "
+        "(columnar load_stream; features COLD-START even if the DB holds "
+        "ratings — stored ratings are usually this history's own end "
+        "state, and seeding from them would leak outcomes into the eval)",
+    )
+    s.add_argument("--model", choices=("logistic", "mlp"), default="logistic")
+    s.add_argument("--epochs", type=int, default=30)
+    s.add_argument("--hidden", type=int, default=64, help="MLP width")
+    s.add_argument("--eval-frac", type=float, default=0.2,
+                   help="chronological tail fraction held out for eval")
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--out", help="npz output for the trained weights")
+    s.add_argument(
+        "--telemetry", action="store_true",
+        help="append post-game telemetry features (analysis head, "
+        "BASELINE config 4; needs an .npz stream from synth --telemetry)",
+    )
+    s.add_argument(
+        "--mesh", type=int, metavar="N",
+        help="data-parallel training over N devices (not ported yet: "
+        "ROADMAP A14; exits 2)",
+    )
+    s.add_argument(
+        "--device", default="cuda",
+        help="torch device to train on (default cuda: the card; exits 2 "
+        "where none is visible)",
+    )
+    s.set_defaults(fn=cmd_train)
+
+    s = sub.add_parser("elo", help="Elo re-rate of a stream + accuracy")
+    s.add_argument("--csv", help="match stream, .csv or .npz")
+    s.add_argument(
+        "--db", metavar="URI",
+        help="Elo re-rate a full history straight from a database",
+    )
+    s.add_argument("--out", help="npz output for ratings/predictions")
+    s.add_argument(
+        "--device", default="cuda",
+        help="torch device to rate on (default cuda: the card; exits 2 "
+        "where none is visible)",
+    )
+    s.set_defaults(fn=cmd_elo)
+
+    s = sub.add_parser(
+        "quality",
+        help="rating-quality report: calibration reliability table, "
+        "Brier/log-loss/ECE, population drift (a /qualityz endpoint, a "
+        "saved soak artifact, or this process's ledger)",
+    )
+    s.add_argument(
+        "--url", metavar="URL",
+        help="fetch from a server's /qualityz endpoint "
+        "(e.g. http://127.0.0.1:9100 — /qualityz is appended)",
+    )
+    s.add_argument(
+        "--artifact", metavar="PATH",
+        help="read the quality block of a saved SOAK_*.json artifact",
+    )
+    s.add_argument(
+        "--fit-temperature", action="store_true",
+        help="fit a post-hoc temperature over the live ledger's "
+        "retained (logit, outcome) prefix (models/calibration.py) and "
+        "report NLL before/after — quantifies over/under-confidence",
+    )
+    s.add_argument(
+        "--json", action="store_true",
+        help="dump the summary as JSON instead of the rendered report",
+    )
+    s.set_defaults(fn=cmd_quality)
     return p
 
 

@@ -9,8 +9,8 @@ native scanner (``io/_native_csv.py``) where it builds. One CSV row per match:
 carried through (the reference logs and skips them, ``rater.py:83-85``).
 Rows must already be in chronological order, as the reference's
 ``ORDER BY created_at ASC`` (``worker.py:176``). The npz form holds the
-four stream arrays under their own names and loads in seconds where a
-10M-match CSV takes minutes.
+four stream arrays under their own names, plus the optional telemetry and
+archetype blocks, and loads in seconds where a 10M-match CSV takes minutes.
 """
 
 from __future__ import annotations
@@ -44,11 +44,14 @@ def save_stream_csv(path: str, stream: MatchStream) -> None:
 
 
 def save_stream_npz(
-    path: str, stream: MatchStream, archetype: np.ndarray | None = None
+    path: str, stream: MatchStream, telemetry: np.ndarray | None = None,
+    archetype: np.ndarray | None = None,
 ) -> None:
     """The binary stream format (``np.savez``: a path without ``.npz``
-    gets the suffix appended). ``archetype`` (``[P]`` int32 playstyle
-    buckets) rides along as the JAX package's archetype block."""
+    gets the suffix appended). ``telemetry`` (``[N, 2, T, 6]`` post-game
+    stats, io/synthetic.py) and ``archetype`` (``[P]`` int32 playstyle
+    buckets) ride along as the JAX package's optional blocks, npz only:
+    the CSV schema has no column for them."""
     arrays = dict(
         player_idx=stream.player_idx,
         winner=stream.winner,
@@ -57,12 +60,22 @@ def save_stream_npz(
     )
     if archetype is not None:
         arrays["archetype"] = np.asarray(archetype, np.int32)
+    if telemetry is not None:
+        from analyzer_tpu_torch.io.synthetic import TELEMETRY_STATS
+
+        want = stream.player_idx.shape + (len(TELEMETRY_STATS),)
+        if telemetry.ndim != 4 or telemetry.shape != want:
+            raise ValueError(
+                f"telemetry shape {telemetry.shape} does not match the "
+                f"stream's {want} ([N, 2, T, {len(TELEMETRY_STATS)}])"
+            )
+        arrays["telemetry"] = telemetry
     np.savez(path, **arrays)
 
 
 def load_stream_npz(path: str) -> MatchStream:
-    """Reads the four stream arrays; other arrays in the file (the JAX
-    package's optional telemetry and archetype blocks) are left alone."""
+    """Reads the four stream arrays; the optional telemetry and archetype
+    blocks have their own loaders."""
     with np.load(path) as z:
         return MatchStream(
             player_idx=z["player_idx"],
@@ -72,13 +85,34 @@ def load_stream_npz(path: str) -> MatchStream:
         )
 
 
+def load_telemetry(path: str) -> np.ndarray | None:
+    """The telemetry block of an ``.npz`` stream, or None (absent /
+    CSV stream)."""
+    if not path.endswith(".npz"):
+        return None
+    with np.load(path) as z:
+        return z["telemetry"] if "telemetry" in z else None
+
+
+def load_archetypes(path: str) -> np.ndarray | None:
+    """The per-player archetype block of an ``.npz`` stream, or None
+    (absent / CSV stream)."""
+    if not path.endswith(".npz"):
+        return None
+    with np.load(path) as z:
+        return z["archetype"] if "archetype" in z else None
+
+
 def save_stream(
-    path: str, stream: MatchStream, archetype: np.ndarray | None = None
+    path: str, stream: MatchStream, telemetry: np.ndarray | None = None,
+    archetype: np.ndarray | None = None,
 ) -> None:
     """Extension-dispatched save: ``.npz`` binary (with the optional
-    archetype block), anything else CSV."""
+    blocks), anything else CSV; telemetry needs the npz form."""
     if path.endswith(".npz"):
-        save_stream_npz(path, stream, archetype)
+        save_stream_npz(path, stream, telemetry, archetype)
+    elif telemetry is not None:
+        raise ValueError("telemetry requires the .npz stream format")
     else:
         save_stream_csv(path, stream)
 

@@ -285,3 +285,56 @@ def synthetic_stream(
     winner = (rng.random(n) >= p_win).astype(np.int32)  # 0 if team0 wins
 
     return MatchStream(player_idx=player_idx, winner=winner, mode_id=mode_id, afk=afk)
+
+
+TELEMETRY_STATS = ("kills", "deaths", "assists", "gold", "cs", "item_build")
+N_ITEM_BUILDS = 8  # categorical: which of 8 canonical item builds was bought
+
+
+def synthetic_telemetry(
+    stream: MatchStream, players: SyntheticPlayers, seed: int = 0
+) -> np.ndarray:
+    """Per-participant POST-GAME telemetry ``[N, 2, T, 6]`` float32
+    (kills, deaths, assists, gold, creep score, item build id), zero at
+    padded slots. ``item_build`` is categorical in ``[0, N_ITEM_BUILDS)``
+    — the "items" of BASELINE config 4, standing in for the reference's
+    ``participant_items`` purchase record; builds carry a mild winrate
+    bias so the head can learn meta strength from the draft histogram.
+
+    BASELINE config 4's "MLP match-outcome predictor on full telemetry
+    (items, gold, KDA)" consumes these. The reference's data model keeps
+    them in ``participant_stats`` (``worker.py:75-78``) — wired into the
+    ORM, never loaded by the rating path — so the telemetry head is an
+    ANALYSIS model over finished matches, not a forecast (the leak-free
+    forecasting features are ``models.features.match_features``).
+
+    Signal structure: winners farm more gold/CS and trade kills for
+    deaths; a player's latent skill shifts their individual output within
+    the team; everything is noisy enough that the head must actually
+    learn the aggregation.
+    """
+    rng = np.random.default_rng(seed + 7)
+    n, _, t = stream.player_idx.shape
+    mask = stream.player_idx >= 0
+    skill = players.latent_skill[np.clip(stream.player_idx, 0, None)]
+    z = ((skill - 1500.0) / 400.0).astype(np.float64)  # ~N(0,1)
+    won = (np.arange(2)[None, :] == stream.winner[:, None]).astype(np.float64)
+    w = won[:, :, None]  # [N,2,1]
+
+    kills = rng.poisson(np.exp(0.25 * z + 0.7 * w - 0.1))
+    deaths = rng.poisson(np.exp(-0.15 * z - 0.6 * w + 0.9))
+    assists = rng.poisson(np.exp(0.15 * z + 0.5 * w + 0.4))
+    gold = np.clip(rng.normal(8000 + 2500 * w + 800 * z, 1500), 0, None)
+    cs = np.clip(rng.normal(120 + 25 * w + 15 * z, 30), 0, None)
+    # Item builds: winners lean toward the stronger half of the meta
+    # (builds 0..3), losers toward the weaker — a soft preference, so
+    # the histogram is informative but not decisive.
+    strong = rng.integers(0, N_ITEM_BUILDS // 2, size=(n, 2, t))
+    weak = rng.integers(N_ITEM_BUILDS // 2, N_ITEM_BUILDS, size=(n, 2, t))
+    prefer_strong = rng.random((n, 2, t)) < (0.35 + 0.3 * w)
+    item_build = np.where(prefer_strong, strong, weak)
+
+    out = np.stack(
+        [kills, deaths, assists, gold, cs, item_build], axis=-1
+    ).astype(np.float32)
+    return out * mask[..., None].astype(np.float32)

@@ -253,6 +253,18 @@ STANDARD_COUNTERS = (
     "ingest.arena_allocs_total",
     "ingest.arena_reuses_total",
     "ingest.h2d_commits_total",
+    # The rating-quality plane (obs/quality.py): matches scored against
+    # their pre-update predicted win probability, the streaming
+    # Brier/log-loss sums and the per-bin reliability counts
+    # (quality.bin_count{bin=} / bin_p_sum{bin=} / bin_y_sum{bin=}
+    # labeled series appear on first score). Counters, so a windowed ECE
+    # is exact from deltas; pre-declared so "nothing scored" reads 0.
+    "quality.matches_scored_total",
+    "quality.brier_sum",
+    "quality.logloss_sum",
+    "quality.bin_count",
+    "quality.bin_p_sum",
+    "quality.bin_y_sum",
 )
 STANDARD_GAUGES = (
     # The tiered table's two budget gauges: the hot-set capacity in rows
@@ -288,6 +300,11 @@ STANDARD_GAUGES = (
     # The ingest staging arena's resident bytes (sched/feed.py
     # PinnedArena — decode slabs + the tiered table's cold tier).
     "ingest.arena_bytes",
+    # The rating-quality plane's derived running means (the counters are
+    # the source of truth) and the population-drift PSI.
+    "quality.brier",
+    "quality.ece",
+    "quality.psi_mu",
 )
 
 #: Histogram families the runtime emits (labeled series like
@@ -411,6 +428,17 @@ SCHEMA_HELP = {
     "ingest.arena_reuses_total": "pinned-arena freelist reuses",
     "ingest.h2d_commits_total": "H2D commits staged off the arena",
     "ingest.arena_bytes": "pinned staging arena resident bytes",
+    "quality.matches_scored_total":
+        "rated matches scored against their pre-update win probability",
+    "quality.brier_sum": "running Brier-score sum over scored matches",
+    "quality.logloss_sum": "running log-loss sum over scored matches",
+    "quality.bin_count": "scored matches per reliability bin",
+    "quality.bin_p_sum": "predicted-probability sum per reliability bin",
+    "quality.bin_y_sum": "realized-outcome sum per reliability bin",
+    "quality.brier": "running mean Brier score (lower = better)",
+    "quality.ece": "running expected calibration error (lower = better)",
+    "quality.psi_mu":
+        "population-stability index of mu vs the pinned reference window",
 }
 
 

@@ -91,9 +91,9 @@ def two_team_update(
     v = v_win(t)
     w = w_win(t, v)
 
-    # +1 for every slot of the winning team, -1 on the losing team.
-    team_pm = torch.tensor([[1.0], [-1.0]], dtype=mu.dtype, device=mu.device)
-    team_sign = sign[..., None, None] * team_pm  # [..., 2, 1]
+    # +1 for every slot of the winning team, -1 on the losing team (sign
+    # times +-1, exact; built on the device, so a CUDA graph can capture it).
+    team_sign = torch.stack((sign, -sign), dim=-1)[..., None]  # [..., 2, 1]
     mu_new = mu + team_sign * (s2 / c[..., None, None]) * v[..., None, None]
     sigma_new = sqrt_rn(
         s2 * (1.0 - (s2 / c2[..., None, None]) * w[..., None, None])

@@ -30,13 +30,16 @@ package's worker runs its reference scan there too, not a Pallas kernel).
 The device profiler (``profile_dir``, obs/prof.py) is the JAX worker's:
 armed, it captures one ``torch.profiler`` window around the next batch's
 dispatch on SIGUSR2, after a dead letter and after a pipeline degradation.
-The other observability planes of the JAX worker — obsd (``obs_port``),
-the flight recorder (``flight_dir``), the SLO plane (``slo_plane``), the
-shadow audit (``audit``) and the rating-quality ledger (``quality``) —
-wait for ROADMAP A16b: asking for one raises NotImplementedError, and
-``slo_plane`` and ``quality`` default to False here until then (the one
-visible difference from the JAX signature; both planes are observers, and
-the JAX worker's results are bit-identical with them on or off).
+The rating-quality ledger (``quality``, on by default as in the JAX
+package; obs/quality.py) scores each sequentially committed batch's
+pre-update win probabilities against its outcomes: an observer, so the
+worker's results are bit-identical with it on or off. The other
+observability planes of the JAX worker — obsd (``obs_port``), the flight
+recorder (``flight_dir``), the SLO plane (``slo_plane``, with the
+ledger's population-drift tick) and the shadow audit (``audit``) — wait
+for ROADMAP A16b: asking for one raises NotImplementedError, and
+``slo_plane`` defaults to False here until then (the one visible
+difference from the JAX signature; the plane is an observer).
 ``serve_shards > 1`` waits for ROADMAP A11b.
 """
 
@@ -93,7 +96,7 @@ A16B = "ROADMAP A16b, the live obs planes"
 A11B = "ROADMAP A11b, the sharded serve plane"
 
 
-def _refuse_planes(obs_port, flight_dir, audit, slo_plane, quality,
+def _refuse_planes(obs_port, flight_dir, audit, slo_plane,
                    serve_shards) -> None:
     """Raises NotImplementedError for a plane the port does not have yet."""
     asked = [name for name, on in (
@@ -101,12 +104,11 @@ def _refuse_planes(obs_port, flight_dir, audit, slo_plane, quality,
         ("flight_dir", flight_dir is not None),
         ("audit", bool(audit)),
         ("slo_plane", bool(slo_plane)),
-        ("quality", bool(quality)),
     ) if on]
     if asked:
         raise NotImplementedError(
             f"Worker({', '.join(asked)}) is not ported yet ({A16B}); leave "
-            "these at their defaults (slo_plane=False, quality=False)"
+            "these at their defaults (slo_plane=False)"
         )
     if serve_shards is not None and serve_shards > 1:
         raise NotImplementedError(
@@ -151,7 +153,7 @@ class Worker:
         audit: bool | None = None,
         audit_sample_denom: int | None = None,
         audit_seed: int = 0,
-        quality: bool = False,
+        quality: bool = True,
         history_interval_s: float = 1.0,
         device=None,
     ) -> None:
@@ -162,8 +164,7 @@ class Worker:
         are accepted for signature parity. ``profile_dir`` (or
         ``ANALYZER_TPU_PROFILE_DIR``) arms the process-wide device
         profiler (obs/prof.py)."""
-        _refuse_planes(obs_port, flight_dir, audit, slo_plane, quality,
-                       serve_shards)
+        _refuse_planes(obs_port, flight_dir, audit, slo_plane, serve_shards)
         self.device = resolve_device(device)
         self.broker = broker
         self.store = store
@@ -261,6 +262,23 @@ class Worker:
                 port=serve_port,
                 host=serve_host or LOOPBACK,
             )
+        # The rating-quality plane (obs/quality.py): at every sequential
+        # commit the ledger scores the batch's PRE-update predicted win
+        # probabilities (the serve plane's Phi link over the prior
+        # ratings) against the realized outcomes, mirrored into quality.*
+        # counters. An observer: nothing here feeds back into the rating
+        # path, so results are bit-identical with the plane on or off
+        # (quality=False is the AB knob). Its population-drift snapshots
+        # ride the SLO plane's tick, which waits for ROADMAP A16b.
+        self.quality = None
+        if quality:
+            from analyzer_tpu_torch.obs.quality import (
+                CalibrationLedger,
+                set_quality_ledger,
+            )
+
+            self.quality = CalibrationLedger(self.rating_config)
+            set_quality_ledger(self.quality)
 
     # -- micro-batcher ----------------------------------------------------
     def poll(self) -> bool:
@@ -714,6 +732,16 @@ class Worker:
         if self._engine is not None:
             self._engine.close()
             self._engine = None
+        if self.quality is not None:
+            from analyzer_tpu_torch.obs.quality import (
+                get_quality_ledger,
+                set_quality_ledger,
+            )
+
+            # The ledger registration is process-wide; release it only if
+            # it is still ours (a newer worker may own it).
+            if get_quality_ledger() is self.quality:
+                set_quality_ledger(None)
         if self.serve_server is not None:
             self.serve_server.close()
             self.serve_server = None
@@ -866,6 +894,12 @@ class Worker:
         logger.info("processing batch of %s matches", n)
         if not n:
             return []
+        # Pre-update prior snapshot for the calibration ledger: ONE
+        # compact row gather before dispatch, scored after the commit
+        # below (obs/quality.py).
+        q_prior = (
+            self._quality_prior(enc) if self.quality is not None else None
+        )
         with tracer.span("batch.pack", cat="worker", matches=n):
             sched = self._bucketed_schedule(enc.stream, enc.state.pad_row)
         with tracer.span(
@@ -889,6 +923,8 @@ class Worker:
         # the serving plane see this batch's posteriors only once the
         # store does (no-op without serve_port).
         self._publish_view(enc, final_state.table)
+        if q_prior is not None:
+            self._score_quality(q_prior)
         self.matches_rated += n
         self.batches_ok += 1
         logger.info(
@@ -898,6 +934,39 @@ class Worker:
         return [
             m if isinstance(m, str) else m.api_id for m in enc.matches
         ]
+
+    def _quality_prior(self, enc) -> tuple | None:
+        """The calibration ledger's input: the batch's PRE-update rows in
+        one compact gather (only the rows its matches reference, on the
+        host) and host views of its stream, re-indexed into that gather
+        (empty slots stay -1). Never raises — the quality plane is an
+        observer and must not take down the consume loop."""
+        try:
+            idx = np.asarray(enc.stream.player_idx)
+            rows = np.unique(idx[idx >= 0])
+            table = enc.state.table[
+                torch.from_numpy(rows.astype(np.int64)).to(enc.state.table.device)
+            ].cpu().numpy()
+            compact = np.where(idx >= 0, np.searchsorted(rows, idx), -1)
+            return (
+                table,
+                compact,
+                np.asarray(enc.stream.winner),
+                np.asarray(enc.stream.mode_id),
+                np.asarray(enc.stream.afk),
+                int(rows.size),  # past every compact row: no slot is padding
+            )
+        except Exception:  # noqa: BLE001 — observer plane
+            logger.exception("quality prior snapshot failed")
+            return None
+
+    def _score_quality(self, prior: tuple) -> None:
+        """Scores one committed batch against its pre-update priors."""
+        try:
+            table, idx, winner, mode_id, afk, pad = prior
+            self.quality.score_batch(table, idx, winner, mode_id, afk, pad)
+        except Exception:  # noqa: BLE001 — observer plane
+            logger.exception("quality scoring failed")
 
     # -- serving plane ----------------------------------------------------
     def _publish_view(self, enc, table) -> None:
@@ -967,8 +1036,9 @@ class Worker:
         right after ``stats()`` carries the same picture.
         ``tests/test_service.py::TestStats`` pins the key schema — a
         dropped key here silently breaks a metrics scraper. The ``slo``,
-        ``quality``, ``migration`` and ``fabric`` blocks are None until
-        their planes are ported (ROADMAP A16b, A13, A15)."""
+        ``migration`` and ``fabric`` blocks are None until their planes
+        are ported (ROADMAP A16b, A13, A15); ``quality`` is the
+        calibration ledger's digest (None with ``quality=False``)."""
         # The engine is built lazily at the first flush, but the lag is
         # already resolved (warmup probe / pinned config) — report it
         # whenever pipelined mode is on, None only when it's off.
@@ -1011,11 +1081,15 @@ class Worker:
             # The migration block: None until the migration engine is
             # ported (ROADMAP A13) and a backfill has run in this process.
             "migration": None,
-            # The SLO plane's, the quality ledger's and the fabric
-            # membership's blocks: None until ROADMAP A16b / A15 port them
-            # (the JAX worker reports None with those planes off).
+            # The SLO plane's and the fabric membership's blocks: None
+            # until ROADMAP A16b / A15 port them (the JAX worker reports
+            # None with those planes off).
             "slo": None,
-            "quality": None,
+            # The rating-quality plane's digest: scored matches, running
+            # Brier / ECE, drift PSI (obs/quality.py).
+            "quality": (
+                self.quality.stats() if self.quality is not None else None
+            ),
             "fabric": None,
         }
 
@@ -1119,8 +1193,7 @@ def main(
     profile_dir = profile_dir or os.environ.get("ANALYZER_TPU_PROFILE_DIR")
     if audit is None and os.environ.get("ANALYZER_TPU_AUDIT", "") not in ("", "0"):
         audit = True
-    _refuse_planes(obs_port, flight_dir, audit, slo_plane, False,
-                   serve_shards)
+    _refuse_planes(obs_port, flight_dir, audit, slo_plane, serve_shards)
     device = resolve_device(device)
     from analyzer_tpu_torch.service.broker import make_pika_broker
 

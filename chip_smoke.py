@@ -115,7 +115,32 @@ lines:
      ``cli trace`` reconstructs its span export and ``cli profile
      --trace-events`` joins a capture to it (both exit 0). The poison
      drill's dead letter must leave one capture directory with its
-     ``manifest.json``;
+     ``manifest.json``. The sequential run has the calibration ledger on
+     (the Worker's default): its quality block (matches scored, Brier,
+     log-loss, ECE, reliability bins) is printed; then two more copies
+     rate the first ``QUALITY_IDS`` ids sequentially with ``quality=True``
+     and ``quality=False``: written rows, deterministic stats and topic
+     traffic equal bit for bit;
+ 13b. models: BASELINE configs 1, 3 and 4 through the port's cli on the
+     card. ``synth --matches 200000 --players 40000 --seed 7`` with
+     ``--telemetry``, and with ``--synergy 2.0`` (BASELINE.md's
+     model-quality provenance streams), then ``train`` with ``--model
+     logistic``, ``--model mlp --hidden 64`` and ``--model mlp
+     --telemetry`` on the first and logistic and mlp on the second: each
+     JSON line with its features / train seconds; losses finite, the
+     telemetry MLP's eval accuracy > 0.95, both synergy heads beating
+     ``baseline_rating_only`` on eval log-loss. On a 20,000-match /
+     4,000-player stream ``train --model logistic|mlp --out`` and ``elo
+     --out`` on the card against the same commands with ``--device cpu``
+     (subprocesses, run beside the card's work): weights within
+     ``MODEL_ATOL``, Elo within ``ELO_ATOL``/``EXP_ATOL``. The features pass
+     on that stream's first ``FEATURES_EAGER_MATCHES`` matches with its
+     per-step CUDA graph and with eager dispatch: bit-identical, both
+     timed. ``models.elo_history`` over [main]'s 10M schedule: seconds,
+     matches/s, finite ratings, and the total rating mass's drift from
+     P x 1500 beside the share unequal teams explain exactly and the
+     float32 rounding bound; then ``cli elo`` on the 1M prefix as a file.
+     TF32 stays off (printed). The phase's wall is printed;
  14. bench: ``cli bench --kernel fused --hot-rows 32768 --profile`` in a
      subprocess at bench's default workload (500,000 matches, 166,666
      players, conc 0.8, max share 1e-4), ``BENCH_REPEATS=2``: the BENCH line
@@ -257,6 +282,26 @@ BENCH_REPEATS = 2
 ORACLE_WINDOWS = 16
 ORACLE_SAMPLE = 256
 ORACLE_BOUNDS = {"mu": 1e-5, "sigma": 1e-4, "quality": 1e-5}
+# [models]: BASELINE.md's model-quality provenance streams (200,000 matches,
+# 40,000 players, seed 7; with telemetry, and with --synergy 2.0), the
+# card-vs-CPU stream, and the first matches of that stream for the
+# features pass's graph-vs-eager check.
+PROV_MATCHES = 200_000
+PROV_PLAYERS = 40_000
+CMP_MATCHES = 20_000
+CMP_PLAYERS = 4_000
+FEATURES_EAGER_MATCHES = 1_000
+TELEMETRY_MIN_ACC = 0.95
+# Card against CPU (tests/test_torch_models.py says why each has one):
+# trained weights (the logistic head's 30 epochs of Adam, the MLP's first
+# MLP_SHORT_EPOCHS), the MLP's 30-epoch losses as the JSON line rounds
+# them, Elo ratings and predictions.
+MODEL_ATOL = 1e-4
+MLP_SHORT_EPOCHS = 5
+LOSS_ATOL = 2e-4
+ELO_ATOL, EXP_ATOL = 2e-3, 1e-5
+# [worker]: the ledger-on and ledger-off sequential runs over these ids.
+QUALITY_IDS = 10_000
 
 
 def log(msg: str) -> None:
@@ -1290,12 +1335,13 @@ def worker_phase(cli, tmp: str, dev, n_matches: int = WORKER_MATCHES) -> dict:
     build_db(pristine, n_matches, n_players, SEED, items=True)
     t_build = time.perf_counter() - t0
     copies = {k: os.path.join(tmp, f"service_{k}.db")
-              for k in ("sequential", "pipelined", "cli", "poison")}
+              for k in ("sequential", "pipelined", "cli", "poison", "quality_on",
+                        "quality_off")}
     for path in copies.values():
         _sh.copy(pristine, path)
     ids = match_ids(pristine)
     log(f"[worker] fixture: {n_matches} matches / {n_players} players with "
-        f"participant_items rows, {t_build:.2f} s; 4 copies")
+        f"participant_items rows, {t_build:.2f} s; {len(copies)} copies")
 
     def dump(path):
         conn = sqlite3.connect(path)
@@ -1345,6 +1391,8 @@ def worker_phase(cli, tmp: str, dev, n_matches: int = WORKER_MATCHES) -> dict:
                        if mode == "sequential" else ())
         tracectx.enable_tracing(False)
         stats = w.stats()
+        if mode == "sequential":
+            quality_block(w.quality)
         fallbacks = int(get_registry().counter("sql.native_fallbacks_total").value
                         - fallbacks0)
         failed = [m.body.decode() for m in broker.queues.get(cfg.failed_queue, [])]
@@ -1415,6 +1463,8 @@ def worker_phase(cli, tmp: str, dev, n_matches: int = WORKER_MATCHES) -> dict:
     if not same:
         raise AssertionError("pipelined worker rows differ from the sequential worker's")
 
+    quality_on_off(copies, ids[:QUALITY_IDS], dev, dump)
+
     fw.launches = 0
     t0 = time.perf_counter()
     buf = io.StringIO()
@@ -1434,6 +1484,54 @@ def worker_phase(cli, tmp: str, dev, n_matches: int = WORKER_MATCHES) -> dict:
     if not same:
         raise AssertionError("worker player rows differ from cli rate --db's")
     return {"launches_worker_cli": cli_launches, **captured}
+
+
+def quality_block(ledger) -> None:
+    """Prints the sequential run's calibration ledger (on by default):
+    matches scored, Brier, log-loss, ECE and the reliability bins."""
+    if ledger is None:
+        raise AssertionError("[worker] the sequential Worker has no quality ledger")
+    q = ledger.summary()
+    if not q["matches_scored"]:
+        raise AssertionError("[worker] the quality ledger scored no match")
+    bins = "; ".join(f"[{b['lo']:.1f},{b['hi']:.1f}) {b['count']} "
+                     f"p {b['mean_p']} y {b['mean_y']}" for b in q["bins"] if b["count"])
+    log(f"[worker] sequential quality ledger: {q['matches_scored']} matches scored, "
+        f"brier {q['brier']}, logloss {q['logloss']}, ece {q['ece']}, worst bin "
+        f"{q['worst_bin']}; bins: {bins}")
+
+
+def quality_on_off(copies: dict, ids: list, dev, dump) -> None:
+    """The ledger is an observer: two sequential Workers over the same ids on
+    two copies, ``quality=True`` (the default) and ``quality=False``, write
+    the same rows and report the same deterministic stats, bit for bit."""
+    from analyzer_tpu_torch.config import RatingConfig, ServiceConfig
+    from analyzer_tpu_torch.experiments.service_bench import run_loop
+    from analyzer_tpu_torch.service import InMemoryBroker, SqlStore, Worker
+
+    got = {}
+    for on in (True, False):
+        path = copies["quality_on" if on else "quality_off"]
+        broker = InMemoryBroker()
+        cfg = ServiceConfig(batch_size=WORKER_BATCH, idle_timeout=0)
+        w = Worker(broker, SqlStore(f"sqlite:///{path}"), cfg, RatingConfig(),
+                   pipeline=False, quality=on, device=dev)
+        loop = run_loop(w, broker, ids, cfg.queue)
+        st = w.stats()
+        w.close()
+        det = {k: st[k] for k in ("matches_rated", "batches_ok", "batches_failed",
+                                  "dead_letters")}
+        got[on] = (dump(path), det, broker.topics, st["quality"], loop["seconds"])
+    same_rows = got[True][0] == got[False][0]
+    same_det = got[True][1:3] == got[False][1:3]
+    log(f"[worker] ledger on / off, sequential over the first {len(ids)} ids: "
+        f"{got[True][4]:.2f} / {got[False][4]:.2f} s; quality block on "
+        f"{got[True][3]}, off {got[False][3]}; written rows "
+        f"({sum(len(t) for t in got[True][0])}) bit-identical: {same_rows}; "
+        f"deterministic stats and topic traffic equal: {same_det}")
+    if not (same_rows and same_det) or got[False][3] is not None \
+            or not got[True][3]["matches_scored"]:
+        raise AssertionError("[worker] the quality ledger changed the worker's output")
 
 
 def bench_phase(n_matches: int) -> dict:
@@ -1659,7 +1757,7 @@ def cli_obs_phase(m_json: str, t_jsonl: str, capture: str, launches: int) -> Non
         "(no causal-trace events in a rate run, as the JAX CLI)")
 
 
-def run_cli(cli, *argv) -> dict:
+def run_cli(cli, *argv, tag="[cli]") -> dict:
     """``cli.main(argv)`` in this process; its stats line, parsed."""
     buf = io.StringIO()
     t0 = time.perf_counter()
@@ -1669,8 +1767,212 @@ def run_cli(cli, *argv) -> dict:
     lines = buf.getvalue().strip().splitlines()
     if rc != 0 or not lines:
         raise AssertionError(f"cli {' '.join(argv)} exited {rc}")
-    log(f"[cli] {' '.join(os.path.basename(a) for a in argv)}: {wall:.2f} s -> {lines[-1]}")
+    log(f"{tag} {' '.join(os.path.basename(a) for a in argv)}: {wall:.2f} s -> {lines[-1]}")
+    if not lines[-1].startswith("{"):
+        return {"line": lines[-1]}
     return json.loads(lines[-1])
+
+
+def models_phase(cli, tmp: str, dev, sched, n_players: int, pre) -> dict:
+    """Phase [models]: BASELINE configs 1, 3 and 4 through the port's cli on
+    the card — five heads at BASELINE.md's provenance sizes, the card
+    against the port's own CPU run, the features pass's CUDA graph against
+    its eager dispatch, Elo over [main]'s 10M schedule and ``cli elo`` on
+    the 1M prefix as a file."""
+    from analyzer_tpu_torch.config import RatingConfig
+    from analyzer_tpu_torch.core.state import PlayerState
+    from analyzer_tpu_torch.io.csv_codec import load_stream, save_stream_npz
+    from analyzer_tpu_torch.models import elo_history, history_features, model_from_numpy
+    from analyzer_tpu_torch.sched import pack_schedule
+
+    t_phase = time.perf_counter()
+    log(f"[models] float32 matmul precision "
+        f"{torch.get_float32_matmul_precision()!r}, "
+        f"torch.backends.cuda.matmul.allow_tf32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+    if torch.get_float32_matmul_precision() != "highest" or \
+            torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 must stay off: the heads train in full float32")
+
+    # The card against the port's CPU run: the CPU half runs in subprocesses
+    # beside the card's work (one core each).
+    cmp_path = os.path.join(tmp, "cmp.npz")
+    run_cli(cli, "synth", "--matches", str(CMP_MATCHES), "--players",
+            str(CMP_PLAYERS), "--seed", "7", "--out", cmp_path, tag="[models]")
+    jobs = {
+        "logistic": ("train", "--model", "logistic"),
+        "mlp": ("train", "--model", "mlp", "--hidden", "64"),
+        "mlp_short": ("train", "--model", "mlp", "--hidden", "64", "--epochs",
+                      str(MLP_SHORT_EPOCHS)),
+        "elo": ("elo",),
+    }
+    procs = {}
+    for name, argv in jobs.items():
+        out = os.path.join(tmp, f"cpu_{name}.npz")
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", "analyzer_tpu_torch.cli", *argv, "--csv",
+             cmp_path, "--out", out, "--device", "cpu"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            env={**os.environ, "OMP_NUM_THREADS": "1"},
+        )
+    try:
+        heads = models_heads(cli, tmp)
+        card = {name: os.path.join(tmp, f"card_{name}.npz") for name in jobs}
+        card_lines = {
+            name: run_cli(cli, *argv, "--csv", cmp_path, "--out", card[name],
+                          tag="[models]")
+            for name, argv in jobs.items()
+        }
+        cpu_lines = {}
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"[models] cpu {name} exited {proc.returncode}: "
+                                     f"{err[-2000:]}")
+            cpu_lines[name] = json.loads(out.strip().splitlines()[-1])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    worst = {}
+    for name in ("logistic", "mlp_short", "mlp"):
+        with np.load(card[name]) as a, np.load(os.path.join(tmp, f"cpu_{name}.npz")) as b:
+            kind = str(a["model"])
+            m, mc = (model_from_numpy(kind, dict(z), device="cpu") for z in (a, b))
+        with torch.no_grad():
+            err = max(float((p - q).abs().max())
+                      for p, q in zip(m.parameters(), mc.parameters()))
+        worst[name] = err
+        ours, cpu = card_lines[name], cpu_lines[name]
+        loss_err = max(abs(ours[k] - cpu[k]) for k in ("train_nll", "eval_logloss"))
+        log(f"[models] card vs cpu, {' '.join(jobs[name][1:])} on {CMP_MATCHES} / "
+            f"{CMP_PLAYERS}: max |weight difference| {err:.3e}, train_nll "
+            f"{ours['train_nll']} / {cpu['train_nll']}, eval_logloss "
+            f"{ours['eval_logloss']} / {cpu['eval_logloss']}")
+        # The MLP's full 30 epochs are held by their losses: a ReLU unit
+        # whose pre-activation crosses zero on one device only parts the two
+        # weight trajectories (tests/test_torch_models.py); its first
+        # MLP_SHORT_EPOCHS epochs and the logistic head by their weights.
+        ok = loss_err <= LOSS_ATOL if name == "mlp" else err <= MODEL_ATOL
+        if not ok:
+            raise AssertionError(f"[models] {name} on the card differs from the "
+                                 f"CPU run: weights {err}, losses {loss_err}")
+    with np.load(card["elo"]) as a, np.load(os.path.join(tmp, "cpu_elo.npz")) as b:
+        r_err = float(np.abs(a["ratings"] - b["ratings"]).max())
+        e_err = float(np.abs(a["expected"] - b["expected"]).max())
+    worst["elo"] = r_err
+    log(f"[models] card vs cpu, elo: max |rating difference| {r_err:.3e} (tol "
+        f"{ELO_ATOL:g}), max |prediction difference| {e_err:.3e} (tol "
+        f"{EXP_ATOL:g}); prediction_accuracy {card_lines['elo']['prediction_accuracy']}"
+        f" / {cpu_lines['elo']['prediction_accuracy']}")
+    if not (r_err <= ELO_ATOL and e_err <= EXP_ATOL):
+        raise AssertionError("[models] elo on the card differs from the CPU run")
+
+    # The features pass: one CUDA graph per step against eager dispatch.
+    cfg = RatingConfig()
+    sub = load_stream(cmp_path).slice(0, FEATURES_EAGER_MATCHES)
+    n_sub = int(sub.player_idx.max()) + 1
+    state = PlayerState.create(n_sub, cfg=cfg, device=dev)
+    sub_sched = pack_schedule(sub, pad_row=state.pad_row, windowed=True)
+    passes = {}
+    for graph in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f, rat, fin = history_features(state, sub_sched, cfg, graph=graph)
+        torch.cuda.synchronize()
+        passes[graph] = (f, fin.table.cpu().numpy(), time.perf_counter() - t0)
+    same = (np.array_equal(passes[True][0], passes[False][0])
+            and np.array_equal(passes[True][1], passes[False][1], equal_nan=True))
+    per = {g: 1e3 * passes[g][2] / sub_sched.n_steps for g in passes}
+    log(f"[models] features pass on the first {sub.n_matches} matches "
+        f"({sub_sched.n_steps} steps x B={sub_sched.batch_size}): CUDA graph "
+        f"{passes[True][2]:.3f} s ({per[True]:.4f} ms/step), eager dispatch "
+        f"{passes[False][2]:.3f} s ({per[False]:.4f} ms/step); features and "
+        f"final table bit-identical: {same}")
+    if not same:
+        raise AssertionError("[models] the graphed features pass differs from eager")
+
+    # Elo over [main]'s schedule at full size.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ratings, expected = elo_history(sched, n_players)
+    torch.cuda.synchronize()
+    t_elo = time.perf_counter() - t0
+    if not np.isfinite(ratings).all() or not np.isfinite(expected).all():
+        raise AssertionError("[models] a non-finite Elo rating or prediction")
+    stream = sched.stream
+    drift = float(ratings.astype(np.float64).sum() - n_players * 1500.0)
+    sizes = (stream.player_idx >= 0).sum(axis=2)
+    uneq = stream.ratable & (sizes[:, 0] != sizes[:, 1])
+    s0 = (stream.winner == 0).astype(np.float64)
+    team_term = float((32.0 * (s0 - expected.astype(np.float64))
+                       * (sizes[:, 0] - sizes[:, 1]))[uneq].sum())
+    adds = int(sizes[stream.ratable].sum())
+    half_ulp = float(np.spacing(np.float32(max(abs(ratings).max(), 1.0)))) / 2
+    log(f"[models] elo_history over [main]'s schedule ({sched.n_matches} matches, "
+        f"{sched.n_steps} steps x B={sched.batch_size}, {n_players} players): "
+        f"{t_elo:.3f} s, {sched.n_matches / t_elo:,.0f} matches/s; ratings "
+        f"finite, min {ratings.min():.2f} max {ratings.max():.2f}; total mass "
+        f"drift from P x 1500: {drift:+.4f} (matches with unequal teams "
+        f"{int(uneq.sum())}, their exact share {team_term:+.4f}; f32 rounding "
+        f"bound {adds} adds x half an ulp {half_ulp:.3e} = {adds * half_ulp:.1f}, "
+        f"random-walk scale {np.sqrt(adds) * half_ulp:.3f})")
+    if abs(drift - team_term) > adds * half_ulp:
+        raise AssertionError(f"[models] Elo mass drift {drift} beyond its bound")
+
+    # cli elo on the 1M prefix as a file.
+    pre_path = os.path.join(tmp, "prefix.npz")
+    save_stream_npz(pre_path, pre)
+    got = run_cli(cli, "elo", "--csv", pre_path, tag="[models]")
+    if got["matches"] != pre.n_matches or got["prediction_accuracy"] is None:
+        raise AssertionError(f"[models] cli elo on the prefix: {got}")
+    wall = time.perf_counter() - t_phase
+    log(f"[models] phase wall {wall:.1f} s")
+    return {"heads": heads, "card_vs_cpu": worst, "elo_s": t_elo, "wall_s": wall}
+
+
+def models_heads(cli, tmp: str) -> dict:
+    """The five heads at BASELINE.md's provenance sizes, each through ``cli
+    train`` on the card: its JSON line with the features and train phase
+    seconds, finite losses, the telemetry MLP's eval accuracy above
+    ``TELEMETRY_MIN_ACC`` and both synergy heads beating the rating-only
+    baseline on eval log-loss."""
+    prov, syn = os.path.join(tmp, "prov.npz"), os.path.join(tmp, "prov_syn.npz")
+    base = ("synth", "--matches", str(PROV_MATCHES), "--players", str(PROV_PLAYERS),
+            "--seed", "7")
+    run_cli(cli, *base, "--telemetry", "--out", prov, tag="[models]")
+    run_cli(cli, *base, "--synergy", "2.0", "--out", syn, tag="[models]")
+    runs = {
+        "logistic": (prov, "--model", "logistic"),
+        "mlp": (prov, "--model", "mlp", "--hidden", "64"),
+        "mlp_telemetry": (prov, "--model", "mlp", "--telemetry"),
+        "synergy_logistic": (syn, "--model", "logistic"),
+        "synergy_mlp": (syn, "--model", "mlp", "--hidden", "64"),
+    }
+    heads = {}
+    for name, (path, *argv) in runs.items():
+        got = run_cli(cli, "train", "--csv", path, *argv, tag="[models]")
+        heads[name] = got
+        nums = [got["train_nll"], got["eval_logloss"], got["eval_accuracy"]]
+        if not all(v is not None and np.isfinite(v) for v in nums):
+            raise AssertionError(f"[models] {name}: a non-finite loss: {got}")
+        log(f"[models] {name}: features {got['phases']['features']:.3f} s, train "
+            f"{got['phases']['train']:.3f} s; eval log-loss {got['eval_logloss']} "
+            f"(baseline {got['baseline_rating_only']['logloss']}), accuracy "
+            f"{got['eval_accuracy']}, auc {got['eval_auc']}, ece {got['eval_ece']}")
+    acc = heads["mlp_telemetry"]["eval_accuracy"]
+    if not acc > TELEMETRY_MIN_ACC:
+        raise AssertionError(f"[models] telemetry MLP eval accuracy {acc} <= "
+                             f"{TELEMETRY_MIN_ACC}")
+    for name in ("synergy_logistic", "synergy_mlp"):
+        h = heads[name]
+        if not h["eval_logloss"] < h["baseline_rating_only"]["logloss"]:
+            raise AssertionError(f"[models] {name} does not beat the rating "
+                                 f"baseline: {h['eval_logloss']} vs "
+                                 f"{h['baseline_rating_only']['logloss']}")
+    return heads
 
 
 def main(argv=None) -> int:
@@ -2088,6 +2390,13 @@ def main(argv=None) -> int:
     try:
         db_counts = db_phase(cli, tmp, dev, args.db_matches)
         worker_counts = worker_phase(cli, tmp, dev, args.worker_matches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- 13b. the model zoo ------------------------------------------------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_models_")
+    try:
+        models_phase(cli, tmp, dev, sched, n_players, pre)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

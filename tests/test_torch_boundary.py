@@ -1,6 +1,7 @@
 """The port's boundary: ``analyzer_tpu_torch`` and ``chip_smoke.py`` stand
-alone — no ``jax``, nothing of ``analyzer_tpu`` — and entry points never
-drop quietly from the card to the CPU."""
+alone — no ``jax`` (nor ``optax`` or ``flax``, which need it), nothing of
+``analyzer_tpu`` — and entry points never drop quietly from the card to
+the CPU."""
 
 import ast
 import os
@@ -24,9 +25,11 @@ def _port_files():
     return sorted(out)
 
 
+_FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "analyzer_tpu")
+
+
 def _forbidden(module: str) -> bool:
-    top = module.split(".")[0]
-    return top == "jax" or top == "jaxlib" or top == "analyzer_tpu"
+    return module.split(".")[0] in _FORBIDDEN
 
 
 def test_import_leaves_jax_and_reference_out():
@@ -39,7 +42,7 @@ def test_import_leaves_jax_and_reference_out():
         "'analyzer_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'analyzer_tpu'))\n"
+        f"{_FORBIDDEN!r})\n"
         "assert not leaked, leaked\n"
         "for name in ('sched.runner', 'cli', '__main__', 'io.checkpoint',\n"
         "             'io.csv_codec', 'experiments.scatter_floor',\n"
@@ -52,7 +55,9 @@ def test_import_leaves_jax_and_reference_out():
         "             'service.encode', 'service.columnar',\n"
         "             'service.worker', 'service.pipeline',\n"
         "             'experiments.service_bench', 'bench', 'ops.oracle',\n"
-        "             'io.ingest', 'io._native_csv'):\n"
+        "             'io.ingest', 'io._native_csv', 'models', 'models.elo',\n"
+        "             'models.features', 'models.training', 'models.logistic',\n"
+        "             'models.mlp', 'models.calibration', 'obs.quality'):\n"
         "    assert 'analyzer_tpu_torch.' + name in sys.modules, name\n"
         # importing builds nothing, starts no thread and parses no argv
         "import threading\n"

@@ -520,3 +520,287 @@ class TestServeAndQuery:
         assert main(["serve", "--checkpoint", path]) == 2
         captured = capsys.readouterr()
         assert "CUDA" in captured.err and "serving" not in captured.out
+
+
+# -- the model zoo's verbs: synth --telemetry, elo, train, quality ----------
+#
+# Exact: the npz telemetry / archetype blocks either package writes and
+# reads, every flag error (exit 2, JAX's text), the JSON keys, and the
+# integer fields. Continuous floats in the JSON lines (log-loss, AUC, NLL,
+# temperature; rounded by both CLIs) are within ``JSON_ATOL``: the
+# features and weights behind them differ by the tolerances of
+# tests/test_torch_models.py (~1e-6). Accuracy and ECE count predictions
+# on either side of a threshold (0.5, a bin edge): a prediction within
+# ~1e-6 of one may land on the other side in the other package and move
+# the metric by 1/eval_on, so they are within ``FLIPS``/eval_on. The
+# port's MLP starts from its own seeded weights (init_mlp, ROADMAP Queue
+# C), so its head metrics are not compared; the rating-only baseline is.
+
+JSON_ATOL = 2e-3
+FLIPS = 3
+
+
+def _model_stream(tmp_path, capsys, name="m.npz", telemetry=True):
+    path = str(tmp_path / name)
+    argv = ["synth", "--matches", "2000", "--players", "300", "--seed", "5",
+            "--max-share", "0.01", "--out", path]
+    assert jax_main(argv + (["--telemetry"] if telemetry else [])) == 0
+    capsys.readouterr()
+    return path
+
+
+def _assert_json_close(ours: dict, theirs: dict, n_eval=None, path=""):
+    assert set(ours) == set(theirs), path
+    n_eval = ours.get("eval_on", n_eval)
+    for k, v in ours.items():
+        w = theirs[k]
+        if k == "phases":
+            assert set(v) == set(w)
+        elif isinstance(v, dict) and isinstance(w, dict):
+            _assert_json_close(v, w, n_eval, f"{path}.{k}")
+        elif isinstance(v, float) or isinstance(w, float):
+            counted = k.endswith(("accuracy", "ece"))
+            tol = FLIPS / n_eval + 1e-4 if counted and n_eval else JSON_ATOL
+            assert v == pytest.approx(w, abs=tol), f"{path}.{k}"
+        else:
+            assert v == w, f"{path}.{k}"
+
+
+class TestTelemetryBlocks:
+    def test_blocks_cross_packages(self, tmp_path):
+        players = synthetic.synthetic_players(40, seed=2)
+        stream = synthetic.synthetic_stream(60, players, seed=2)
+        tel = synthetic.synthetic_telemetry(stream, players, seed=2)
+        jstream = JaxMatchStream(*(getattr(stream, f) for f in STREAM_FIELDS))
+        port_file, jax_file = str(tmp_path / "p.npz"), str(tmp_path / "j.npz")
+        codec.save_stream(port_file, stream, telemetry=tel,
+                          archetype=players.archetype)
+        jcodec.save_stream(jax_file, jstream, telemetry=tel,
+                           archetype=players.archetype)
+        for path in (port_file, jax_file):
+            for load, jload in ((codec.load_telemetry, jcodec.load_telemetry),
+                                (codec.load_archetypes, jcodec.load_archetypes)):
+                got, want = load(path), jload(path)
+                assert got.dtype == want.dtype and np.array_equal(got, want)
+        with np.load(port_file) as a, np.load(jax_file) as b:
+            assert sorted(a.files) == sorted(b.files)
+            assert all(a[f].tobytes() == b[f].tobytes() for f in a.files)
+        plain = str(tmp_path / "plain.npz")
+        codec.save_stream_npz(plain, stream)
+        assert codec.load_telemetry(plain) is None
+        assert codec.load_archetypes(plain) is None
+        assert codec.load_telemetry(str(tmp_path / "x.csv")) is None
+
+    def test_errors_equal_jax(self, tmp_path):
+        players = synthetic.synthetic_players(20, seed=1)
+        stream = synthetic.synthetic_stream(30, players, seed=1)
+        jstream = JaxMatchStream(*(getattr(stream, f) for f in STREAM_FIELDS))
+        bad = np.zeros((30, 2, 5, 5), np.float32)
+        for save, s in ((codec.save_stream_npz, stream),
+                        (jcodec.save_stream_npz, jstream)):
+            with pytest.raises(ValueError) as err:
+                save(str(tmp_path / "b.npz"), s, telemetry=bad)
+            assert "does not match the stream's (30, 2, 5, 6)" in str(err.value)
+        for save, s in ((codec.save_stream, stream), (jcodec.save_stream, jstream)):
+            with pytest.raises(ValueError, match="telemetry requires the .npz"):
+                save(str(tmp_path / "b.csv"), s, telemetry=bad)
+
+
+class TestModelsCli:
+    def test_elo_equals_jax(self, tmp_path, capsys):
+        path = _model_stream(tmp_path, capsys, telemetry=False)
+        out, jout = str(tmp_path / "elo.npz"), str(tmp_path / "jelo.npz")
+        ours = _run(capsys, "elo", "--csv", path, "--out", out)
+        theirs = _run_jax(capsys, "elo", "--csv", path, "--out", jout)
+        assert set(ours["phases"]) == set(theirs["phases"]) == {"load", "pack", "rate"}
+        _assert_json_close(ours, theirs, n_eval=2000)
+        with np.load(out) as a, np.load(jout) as b:
+            assert sorted(a.files) == sorted(b.files) == ["expected", "ratings"]
+            np.testing.assert_allclose(a["ratings"], b["ratings"], atol=2e-3)
+            np.testing.assert_allclose(a["expected"], b["expected"], atol=1e-5)
+
+    @pytest.mark.parametrize("argv", [
+        ("--model", "logistic", "--epochs", "20", "--seed", "2"),
+        ("--model", "mlp", "--hidden", "16", "--epochs", "10", "--telemetry",
+         "--eval-frac", "0.3"),
+    ], ids=["logistic", "mlp-telemetry"])
+    def test_train_equals_jax(self, tmp_path, capsys, argv):
+        from analyzer_tpu_torch.models import model_from_numpy
+
+        path = _model_stream(tmp_path, capsys)
+        out, jout = str(tmp_path / "w.npz"), str(tmp_path / "jw.npz")
+        ours = _run(capsys, "train", "--csv", path, *argv, "--out", out)
+        theirs = _run_jax(capsys, "train", "--csv", path, *argv, "--out", jout)
+        assert set(ours["phases"]) == {"load", "features", "train"}
+        assert ours["composition_features"] is True
+        kind = ours["model"]
+        if kind == "mlp":  # different initial weights: the head differs
+            head = ("train_nll", "eval_accuracy", "eval_logloss", "eval_auc",
+                    "eval_ece", "temperature")
+            for k in head:
+                assert np.isfinite(ours[k]) and set(ours) == set(theirs)
+                ours[k] = theirs[k]
+        _assert_json_close(ours, theirs)
+        with np.load(out) as a, np.load(jout) as b:
+            assert sorted(a.files) == sorted(b.files)
+            assert str(a["model"]) == str(b["model"]) == kind
+            # Each package's file loads into the port's model.
+            m = model_from_numpy(kind, dict(a), device="cpu")
+            jm = model_from_numpy(kind, dict(b), device="cpu")
+            for (name, p), (_, q) in zip(m.named_parameters(), jm.named_parameters()):
+                assert p.shape == q.shape and p.dtype == q.dtype, name
+                if kind == "logistic":
+                    np.testing.assert_allclose(p.detach().numpy(),
+                                               q.detach().numpy(),
+                                               rtol=1e-4, atol=1e-5, err_msg=name)
+
+    @pytest.mark.parametrize("argv", [
+        ("--eval-frac", "1.0"),
+        ("--eval-frac", "-0.1"),
+        ("--db", "sqlite:///x.db"),
+        (),
+        ("--db", "sqlite:///x.db", "--telemetry"),
+    ])
+    def test_train_flag_errors_equal_jax(self, tmp_path, capsys, argv):
+        path = _model_stream(tmp_path, capsys, telemetry=False)
+        src = ("--csv", path) if argv != () and "--db" not in argv else ()
+        if argv == ("--db", "sqlite:///x.db"):
+            src = ("--csv", path)  # both sources: refused
+        assert main(["train", *src, *argv, "--device", "cpu"]) == 2
+        ours = capsys.readouterr().err.strip()
+        assert jax_main(["train", *src, *argv]) == 2
+        assert ours == capsys.readouterr().err.strip() != ""
+
+    def test_train_telemetry_without_block_equals_jax(self, tmp_path, capsys):
+        path = _model_stream(tmp_path, capsys, telemetry=False)
+        assert main(["train", "--csv", path, "--telemetry", "--device", "cpu"]) == 2
+        ours = capsys.readouterr().err.strip()
+        assert jax_main(["train", "--csv", path, "--telemetry"]) == 2
+        assert ours == capsys.readouterr().err.strip()
+        assert "synth --telemetry" in ours
+
+    def test_mesh_exits_2_naming_a14_after_jax_checks(self, tmp_path, capsys):
+        path = _model_stream(tmp_path, capsys, telemetry=False)
+        assert main(["train", "--csv", path, "--mesh", "2", "--device", "cpu"]) == 2
+        captured = capsys.readouterr()
+        assert "ROADMAP A14" in captured.err and captured.out == ""
+        assert main(["train", "--csv", path, "--mesh", "2", "--eval-frac", "2",
+                     "--device", "cpu"]) == 2
+        assert capsys.readouterr().err.strip() == "error: --eval-frac must be in [0, 1)"
+
+    @pytest.mark.parametrize("verb", ["elo", "train"])
+    def test_no_card_is_refused(self, tmp_path, capsys, verb):
+        import torch
+
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA device is visible: the default runs on it")
+        path = _model_stream(tmp_path, capsys, telemetry=False)
+        assert main([verb, "--csv", path]) == 2
+        captured = capsys.readouterr()
+        assert "CUDA" in captured.err and captured.out == ""
+
+    def test_db_lane_equals_jax(self, tmp_path, capsys):
+        from tests.test_torch_sql_store import synth_db
+
+        db = synth_db(str(tmp_path / "h.db"), n=1200, p=200)
+        for verb in ("elo", "train"):
+            ours = _run(capsys, verb, "--db", f"sqlite:///{db}")
+            theirs = _run_jax(capsys, verb, "--db", f"sqlite:///{db}")
+            _assert_json_close(ours, theirs, n_eval=1200)
+
+
+def _scored_ledgers():
+    """One port and one JAX ledger over the same seeded batches."""
+    from analyzer_tpu.config import RatingConfig as JRC
+    from analyzer_tpu.obs import quality as jq
+    from analyzer_tpu_torch.config import RatingConfig
+    from analyzer_tpu_torch.obs import quality as q
+
+    rng = np.random.default_rng(8)
+    ours = q.CalibrationLedger(RatingConfig(), mirror=False)
+    theirs = jq.CalibrationLedger(JRC(), mirror=False)
+    table = np.full((201, 16), np.nan, np.float32)
+    table[:, 14] = rng.uniform(1000, 2500, 201)
+    table[:, 15] = rng.uniform(300, 900, 201)
+    table[:150, 0] = rng.uniform(500, 2500, 150)
+    table[:150, 7] = rng.uniform(50, 600, 150)
+    idx = np.stack([rng.permutation(200)[:6] for _ in range(400)])
+    idx = idx.reshape(400, 2, 3).astype(np.int32)
+    args = (table, idx, rng.integers(0, 2, 400).astype(np.int32),
+            rng.integers(0, 6, 400).astype(np.int32), np.zeros(400, bool))
+    ours.score_batch(*args, pad_row=200)
+    theirs.score_batch(*args, pad_row=200)
+    ours.observe_population(table, now=3.0)
+    theirs.observe_population(table, now=3.0)
+    return (q, ours), (jq, theirs)
+
+
+class TestQualityCli:
+    @pytest.mark.parametrize("argv", [("--json",), (), ("--json", "--fit-temperature"),
+                                      ("--fit-temperature",)])
+    def test_live_ledger_equals_jax(self, capsys, argv):
+        (q, ours), (jq, theirs) = _scored_ledgers()
+        try:
+            q.set_quality_ledger(ours)
+            jq.set_quality_ledger(theirs)
+            assert main(["quality", *argv]) == 0
+            got = capsys.readouterr().out
+            assert jax_main(["quality", *argv]) == 0
+            assert got == capsys.readouterr().out
+        finally:
+            q.reset_quality_ledger()
+            jq.reset_quality_ledger()
+        if "--json" in argv:
+            summary = json.loads(got)
+            assert summary["matches_scored"] == 400
+            if "--fit-temperature" in argv:
+                assert set(summary["temperature"]) == {"t", "nll_before", "nll_after", "n"}
+
+    def test_empty_process_ledger_equals_jax(self, capsys):
+        for argv in (("--json",), ("--fit-temperature",)):
+            rc = main(["quality", *argv])
+            got = capsys.readouterr()
+            assert rc == jax_main(["quality", *argv])
+            want = capsys.readouterr()
+            assert (got.out, got.err) == (want.out, want.err)
+
+    def test_artifact_and_url_equal_jax(self, tmp_path, capsys):
+        import http.server
+        import threading
+
+        (_q, ours), _ = _scored_ledgers()
+        summary = ours.summary()
+        art = str(tmp_path / "SOAK_r01.json")
+        json.dump({"quality": summary}, open(art, "w"))
+        bare = str(tmp_path / "bare.json")
+        json.dump({"other": 1}, open(bare, "w"))
+        bodies = {"/qualityz": summary, "/off/qualityz": {"enabled": False}}
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):
+                body = json.dumps(bodies.get(self.path, {})).encode()
+                self.send_response(200 if self.path in bodies else 404)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):
+                pass
+
+        srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        try:
+            for argv in (("--artifact", art), ("--artifact", art, "--json"),
+                         ("--artifact", bare), ("--artifact", str(tmp_path / "no.json")),
+                         ("--url", url), ("--url", url + "/", "--json"),
+                         ("--url", url + "/off"), ("--url", url, "--fit-temperature")):
+                rc = main(["quality", *argv])
+                got = capsys.readouterr()
+                assert rc == jax_main(["quality", *argv]), argv
+                want = capsys.readouterr()
+                assert (got.out, got.err) == (want.out, want.err), argv
+        finally:
+            srv.shutdown()
+            srv.server_close()

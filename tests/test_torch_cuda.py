@@ -10,7 +10,10 @@ written), the query engine on the card against its oracle, and a
 ``torch.profiler`` capture of the fused path attributed to the kernel on a
 device lane; the ingest plane's pinned staging arena (commit, release only
 after the copy's event, ``stage_ingest_window``), the cold tier on it, and
-a tiny ``cli bench`` on the card. Every test
+a tiny ``cli bench`` on the card; the model zoo on the card against the
+port's CPU run (the features pass, its CUDA graph against eager dispatch
+bit for bit, Elo, both heads' training, the Worker with and without the
+calibration ledger). Every test
 needs a CUDA device (marker
 ``cuda``) and skips with a reason without one. On the card, where JAX is
 not installed, run them without the suite's conftest:
@@ -624,3 +627,91 @@ def test_cli_bench_tiny_on_card(cuda):
     assert line["fused"]["bit_identical_to_reference"] is True
     assert line["tiered"]["bit_identical_to_resident"] is True
     assert line["device"]["name"] and line["device"]["power_limit"]
+
+
+# The model zoo on the card against the port's CPU run on the same inputs.
+# The card's eager ops and the CPU's are the same float32 operations, but
+# reductions (team sums, matmuls, the loss) run in another order and the
+# transcendentals come from another library: features within the
+# tests/test_torch_models.py tolerance, Elo within its, and trained weights
+# within MODEL_ATOL (ulps a step for 30 epochs of Adam).
+MODEL_ATOL = 1e-4
+
+
+def _model_history(device):
+    from analyzer_tpu_torch.io.synthetic import synthetic_players, synthetic_stream
+
+    players = synthetic_players(300, seed=21)
+    stream = synthetic_stream(3000, players, seed=21, afk_rate=0.05,
+                              unsupported_rate=0.05)
+    state = PlayerState.create(300, players.rank_points_ranked,
+                               players.rank_points_blitz, players.skill_tier,
+                               device=device)
+    return stream, state, pack_schedule(stream, pad_row=300, windowed=True)
+
+
+def test_features_pass_graph_equals_eager_and_cpu(cuda):
+    from analyzer_tpu_torch.models import history_features
+
+    stream, state, sched = _model_history(cuda)
+    g, rg, fg = history_features(state, sched, CFG, steps_per_chunk=700)
+    e, re_, fe = history_features(state, sched, CFG, graph=False)
+    assert np.array_equal(g, e) and np.array_equal(rg, re_)
+    assert torch.equal(fg.table.isnan(), fe.table.isnan())
+    assert torch.equal(fg.table.nan_to_num(), fe.table.nan_to_num())
+    ref, _ = rate_history(state, sched, CFG, kernel="reference")
+    assert torch.equal(fg.table.nan_to_num(), ref.table.nan_to_num())
+    c, rc, _ = history_features(state.clone(), sched, CFG, device="cpu")
+    assert np.array_equal(rg, rc) and np.array_equal(np.isnan(g), np.isnan(c))
+    np.testing.assert_array_equal(g[:, 4:], c[:, 4:])
+    np.testing.assert_allclose(g[:, :4], c[:, :4], rtol=1e-5, atol=1e-5)
+
+
+def test_elo_and_heads_on_card_equal_cpu(cuda):
+    from analyzer_tpu_torch.models import (
+        elo_history, history_features, train_logistic, train_mlp,
+    )
+
+    stream, state, sched = _model_history(cuda)
+    r, e = elo_history(sched, 300)
+    rc, ec = elo_history(sched, 300, device="cpu")
+    np.testing.assert_allclose(r, rc, rtol=0, atol=2e-3)
+    np.testing.assert_allclose(e, ec, rtol=0, atol=1e-5)
+    f, rat, _ = history_features(state, sched, CFG, device="cpu")
+    y = (stream.winner == 0).astype(np.float32)
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    for train, kw in ((train_logistic, {}), (train_mlp, {"hidden": 32})):
+        m, nll = train(f[rat], y[rat], batch_size=512, **kw)
+        mc, nllc = train(f[rat], y[rat], batch_size=512, device="cpu", **kw)
+        assert nll == pytest.approx(nllc, rel=1e-4)
+        for (name, p), (_, q) in zip(m.named_parameters(), mc.named_parameters()):
+            assert p.is_cuda and not q.is_cuda
+            np.testing.assert_allclose(p.detach().cpu().numpy(), q.detach().numpy(),
+                                       rtol=0, atol=MODEL_ATOL, err_msg=name)
+
+
+def test_worker_ledger_on_card_is_an_observer(cuda, tmp_path):
+    import sqlite3
+
+    from analyzer_tpu_torch.config import ServiceConfig
+    from analyzer_tpu_torch.experiments.service_bench import build_db, match_ids, run_loop
+    from analyzer_tpu_torch.service import InMemoryBroker, SqlStore, Worker
+
+    dumps, stats = [], []
+    for on in (True, False):
+        path = str(tmp_path / f"q{on}.db")
+        build_db(path, 1500, 500, 3, items=True)
+        broker = InMemoryBroker()
+        cfg = ServiceConfig(batch_size=250, idle_timeout=0)
+        w = Worker(broker, SqlStore(f"sqlite:///{path}"), cfg, pipeline=False,
+                   quality=on)
+        run_loop(w, broker, match_ids(path), cfg.queue)
+        stats.append(w.stats())
+        w.close()
+        conn = sqlite3.connect(path)
+        dumps.append([conn.execute(f'SELECT * FROM "{t}" ORDER BY rowid').fetchall()
+                      for t in ("player", "participant", "participant_items", "match")])
+        conn.close()
+    assert dumps[0] == dumps[1]
+    assert stats[0]["quality"]["matches_scored"] > 0 and stats[1]["quality"] is None

@@ -10,9 +10,9 @@ integer, text and NULL written back, the stats key set, the encoders'
 streams, row maps and player tables. Float posteriors are within the
 tolerance of ``tests/test_torch_stream.py`` (rtol 2e-6, atol 2e-3; see
 ``tests/test_torch_sql_store.py`` for why). The JAX Worker runs with
-``slo_plane=False, quality=False``: both planes are observers (the JAX
-package pins its results bit-identical with them on or off) and the port
-does not have them yet (ROADMAP A16b). The device profiler
+``slo_plane=False`` (an observer the port does not have yet, ROADMAP
+A16b) and, as the port's, with the rating-quality ledger on
+(``tests/test_torch_quality.py`` holds the two ledgers' counters). The device profiler
 (``profile_dir``) is ported: ``TestDeviceProfilerWorker`` holds its
 requests and capture windows to the JAX worker's.
 
@@ -93,7 +93,7 @@ def make_worker(side, broker, store, cfg_kw, **kw):
         return Worker(broker, store, ServiceConfig(**cfg_kw), RatingConfig(),
                       device="cpu", **kw)
     return JaxWorker(broker, store, JaxServiceConfig(**cfg_kw),
-                     JaxRatingConfig(), slo_plane=False, quality=False, **kw)
+                     JaxRatingConfig(), slo_plane=False, quality=True, **kw)
 
 
 def broker_of(side):
@@ -278,7 +278,9 @@ class TestWorkerParity:
                              dict(batch_size=4, idle_timeout=0.0))
         s = ours.stats()
         assert set(s) == set(theirs.stats())
-        assert s["slo"] is s["quality"] is s["migration"] is s["fabric"] is None
+        assert s["slo"] is s["migration"] is s["fabric"] is None
+        assert s["quality"] == theirs.stats()["quality"]
+        assert set(s["quality"]) == {"matches_scored", "brier", "ece", "psi_mu"}
 
 
 def _tie(store):
@@ -461,7 +463,6 @@ class TestRefusals:
         (dict(flight_dir="x"), "A16"),
         (dict(audit=True), "A16"),
         (dict(slo_plane=True), "A16"),
-        (dict(quality=True), "A16"),
         (dict(serve_shards=2), "A11b"),
     ])
     def test_unported_planes_raise(self, kw, item):
@@ -782,10 +783,29 @@ class TestCliDb:
                 assert za[f].dtype == zb[f].dtype
                 assert za[f].tobytes() == zb[f].tobytes(), f
 
-    def test_synth_telemetry_exits_2_naming_a12(self, tmp_path, capsys):
-        out = str(tmp_path / "t.npz")
-        assert cli.main(["synth", "--telemetry", "--out", out]) == 2
-        assert "A12" in capsys.readouterr().err and not os.path.exists(out)
+    @pytest.mark.parametrize("ext", [".npz", ".csv", ".db"])
+    def test_synth_telemetry_equals_jax(self, tmp_path, capsys, ext):
+        """``synth --telemetry`` (refused until the models were ported):
+        the npz gains JAX's telemetry block byte for byte; any other
+        output exits 2 with JAX's text and writes nothing."""
+        a, b = str(tmp_path / f"port{ext}"), str(tmp_path / f"jax{ext}")
+        argv = ["synth", "--matches", "120", "--players", "30", "--seed", "6",
+                "--telemetry"]
+        rc = cli.main([*argv, "--out", a])
+        ours = capsys.readouterr()
+        assert rc == jax_cli.main([*argv, "--out", b])
+        theirs = capsys.readouterr()
+        assert ours.out.replace(a, "OUT") == theirs.out.replace(b, "OUT")
+        assert ours.err == theirs.err
+        if ext != ".npz":
+            assert rc == 2 and not os.path.exists(a)
+            assert "--telemetry requires an .npz output" in ours.err
+            return
+        za, zb = np.load(a), np.load(b)
+        assert sorted(za.files) == sorted(zb.files) and "telemetry" in za.files
+        for f in za.files:
+            assert za[f].dtype == zb[f].dtype and za[f].shape == zb[f].shape
+            assert za[f].tobytes() == zb[f].tobytes(), f
 
     @pytest.mark.parametrize("kernel", ["reference", "fused"])
     @pytest.mark.parametrize("packed", [False, True])
