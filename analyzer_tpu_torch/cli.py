@@ -1,6 +1,6 @@
 """Command-line interface of the port: ``python -m analyzer_tpu_torch.cli
-synth | rate | serve | query | worker | bench | metrics | trace | profile |
-elo | train | quality``.
+synth | rate | serve | query | worker | bench | metrics | history | trace |
+profile | elo | train | quality | fleet``.
 
 Counterparts of the same subcommands of ``analyzer_tpu.cli``, with the JAX
 package's flags, defaults, error texts (exit 2) and JSON lines.
@@ -37,7 +37,18 @@ database, served by api id) publishes the table as version 1 and answers
 request against such an endpoint.
 
 ``worker`` is the broker-consuming service loop (needs pika and a
-RabbitMQ; ``--requeue-failed`` redrives the dead-letter queue).
+RabbitMQ; ``--requeue-failed`` redrives the dead-letter queue), with the
+JAX worker's live planes: obsd (``--obs-port``), the flight recorder
+(``--flight-dir``), the shadow audit (``--audit``) and the SLO plane (on
+unless ``--no-slo-plane``).
+
+Live introspection: ``rate``, ``serve``, ``bench`` and ``worker`` take
+``--obs-port`` (obsd — ``/healthz /readyz /metrics /statusz /historyz
+/sloz /qualityz /debug/snapshot /debug/flight`` on localhost; 0 =
+ephemeral, the URL prints on stderr). ``history`` trend-renders the
+history rings of a live obsd (``--url``), a saved ``history.json`` or a
+flight-dump directory; ``fleet`` scrapes N obsd endpoints into one fleet
+view (``--check``: one scrape, exit 1 on any burn).
 
 ``rate --trace DIR`` captures a ``torch.profiler`` trace of the rating
 phase (``cli profile DIR`` attributes it), ``--metrics-out PATH`` writes
@@ -55,11 +66,9 @@ flags routed into the same env knobs.
 ``rate``, ``serve``, ``worker``, ``bench``, ``elo`` and ``train`` run on the
 card (``--device cuda``, the default) and refuse to start where there is
 none; ``--device cpu`` runs them on the CPU. Not ported yet, each exiting 2
-with its ROADMAP item: ``rate --mesh``, ``train --mesh`` and ``BENCH_MESH`` (A14),
-``rate --obs-port``, ``bench --obs-port``, ``worker
---obs-port/--flight-dir/--audit`` and bench's watchdog/federate knobs
-(A16b, the live obs planes), ``bench --migrate`` (A13), ``serve --shards
-N>1`` and ``worker --serve-shards N>1`` (A11b).
+with its ROADMAP item: ``rate --mesh``, ``train --mesh`` and ``BENCH_MESH``
+(A14), ``bench --migrate`` (A13), ``serve --shards N>1`` and ``worker
+--serve-shards N>1`` (A11b).
 """
 
 from __future__ import annotations
@@ -78,7 +87,6 @@ from analyzer_tpu_torch.utils.profiling import PhaseTimer, trace
 #: ROADMAP items the refused flags wait for.
 A13 = "ROADMAP A13, migration"
 A14 = "ROADMAP A14, parallel"
-A16B = "ROADMAP A16b, the live obs planes"
 
 
 def _load_stream(path: str):
@@ -439,8 +447,8 @@ def cmd_train(args) -> int:
 def cmd_quality(args) -> int:
     """Rating-quality report: the calibration ledger's reliability table,
     streaming Brier / log-loss / ECE and the population-drift verdict —
-    from a server's ``/qualityz`` (``--url``; nothing in the port serves
-    it before ROADMAP A16b), from a saved soak artifact's ``quality``
+    from a live worker's obsd ``/qualityz`` (``--url``), from a saved
+    soak artifact's ``quality``
     block (``--artifact``), or from this process's own ledger (mostly
     empty outside a run). ``--fit-temperature`` fits a post-hoc
     temperature over the live ledger's retained (logit, outcome) prefix
@@ -677,17 +685,18 @@ def _resolve_device(args, verb: str):
         return None
 
 
-def _obs_begin(args) -> bool:
-    """Checks a run's telemetry flags before it starts. The JAX package
-    arms its compile listeners here (nothing in the port compiles) and
-    starts obsd for ``--obs-port``, which waits for ROADMAP A16b: that
-    flag is refused. Prints the refusal and returns False."""
-    if getattr(args, "obs_port", None) is not None:
-        print(f"error: --obs-port is not ported yet ({A16B}); use "
-              "--metrics-out / --trace-events for this run's telemetry",
-              file=sys.stderr)
-        return False
-    return True
+def _obs_serve(args):
+    """Starts obsd for the duration of a CLI run when ``--obs-port`` was
+    given (0 = ephemeral; the bound URL prints to stderr). Returns the
+    server (the caller closes it) or None."""
+    port = getattr(args, "obs_port", None)
+    if port is None:
+        return None
+    from analyzer_tpu_torch.obs.server import ObsServer
+
+    server = ObsServer(port=port)
+    print(f"obsd listening on {server.url}", file=sys.stderr)
+    return server
 
 
 def _obs_write(args) -> None:
@@ -708,11 +717,14 @@ def _obs_write(args) -> None:
 
 
 def cmd_rate(args) -> int:
-    if not _obs_begin(args):
-        return 2
-    rc = _cmd_rate_impl(args)
-    if rc == 0:
-        _obs_write(args)
+    server = _obs_serve(args)
+    try:
+        rc = _cmd_rate_impl(args)
+        if rc == 0:
+            _obs_write(args)
+    finally:
+        if server is not None:
+            server.close()
     return rc
 
 
@@ -806,12 +818,9 @@ def _cmd_rate_impl(args) -> int:
 
 def cmd_serve(args) -> int:
     """ratesrv standalone: publish a rating table (checkpoint or DB) as
-    version 1 and serve queries against it from the device."""
-    from analyzer_tpu_torch.config import RatingConfig
-    from analyzer_tpu_torch.io.checkpoint import load_checkpoint
-    from analyzer_tpu_torch.serve import QueryEngine, ViewPublisher
-    from analyzer_tpu_torch.serve.server import ServeServer
-
+    version 1 and serve queries against it from the device; with
+    ``--obs-port`` obsd runs beside it (the ``serve.*`` metrics land in
+    ``/metrics``)."""
     args.checkpoint = args.checkpoint or None
     args.db = args.db or None
     if (args.checkpoint is None) == (args.db is None):
@@ -828,6 +837,21 @@ def cmd_serve(args) -> int:
     device = _resolve_device(args, "serve")
     if device is None:
         return 2
+    obs = _obs_serve(args)
+    try:
+        return _serve(args, device)
+    finally:
+        if obs is not None:
+            obs.close()
+
+
+def _serve(args, device) -> int:
+    """cmd_serve's body: publish, warm, serve until the deadline."""
+    from analyzer_tpu_torch.config import RatingConfig
+    from analyzer_tpu_torch.io.checkpoint import load_checkpoint
+    from analyzer_tpu_torch.serve import QueryEngine, ViewPublisher
+    from analyzer_tpu_torch.serve.server import ServeServer
+
     cfg = RatingConfig.from_env()
     publisher = ViewPublisher(device=device)
     if args.checkpoint:
@@ -1085,7 +1109,7 @@ def cmd_bench(args) -> int:
     ``BENCH_KERNEL=...`` run stay one code path."""
     from analyzer_tpu_torch import bench
 
-    why = bench.refusal(args.obs_port, args.migrate)
+    why = bench.refusal(args.migrate)
     if why is not None:
         print(f"error: {why}", file=sys.stderr)
         return 2
@@ -1104,7 +1128,8 @@ def cmd_bench(args) -> int:
         os.environ["BENCH_PROFILE"] = "1"
     if args.profile_dir:
         os.environ["BENCH_PROFILE_DIR"] = args.profile_dir
-    bench.main(metrics_out=args.metrics_out, device=device)
+    bench.main(metrics_out=args.metrics_out, obs_port=args.obs_port,
+               device=device)
     return 0
 
 
@@ -1114,15 +1139,6 @@ def cmd_worker(args) -> int:
     RabbitMQ."""
     from analyzer_tpu_torch.service.worker import A11B
 
-    refused = [flag for flag, on in (
-        ("--obs-port", args.obs_port is not None),
-        ("--flight-dir", args.flight_dir is not None),
-        ("--audit", args.audit),
-    ) if on]
-    if refused:
-        print(f"error: worker {' '.join(refused)} is not ported yet ({A16B})",
-              file=sys.stderr)
-        return 2
     if args.serve_shards is not None and args.serve_shards > 1:
         print(f"error: worker --serve-shards > 1 is not ported yet ({A11B}); "
               "use --serve-shards 1", file=sys.stderr)
@@ -1150,9 +1166,141 @@ def cmd_worker(args) -> int:
         return 2
     from analyzer_tpu_torch.service.worker import main as worker_main
 
-    worker_main(serve_port=args.serve_port, serve_shards=args.serve_shards,
-                profile_dir=args.profile_dir, device=device)
+    worker_main(
+        obs_port=args.obs_port, obs_host=args.obs_host,
+        flight_dir=args.flight_dir,
+        serve_port=args.serve_port, serve_shards=args.serve_shards,
+        profile_dir=args.profile_dir,
+        audit=True if args.audit else None,
+        audit_sample_denom=args.audit_sample_denom,
+        slo_plane=not args.no_slo_plane, device=device,
+    )
     return 0
+
+
+def cmd_history(args) -> int:
+    """Telemetry history rings (obs/history.py): trend-render or dump the
+    tiered time series — from a live obsd's ``/historyz`` (``--url``),
+    from a saved ``history.json`` / flight-dump directory, or from this
+    process's own sampler (mostly empty outside a run — useful to see the
+    series list)."""
+    payload = None
+    if args.url:
+        import urllib.request
+
+        url = args.url.rstrip("/") + "/historyz"
+        try:
+            with urllib.request.urlopen(url, timeout=10) as resp:
+                payload = json.load(resp)
+        except OSError as err:
+            print(f"error: cannot fetch {url}: {err}", file=sys.stderr)
+            return 2
+    elif args.artifact:
+        path = args.artifact
+        if os.path.isdir(path):
+            path = os.path.join(path, "history.json")
+        try:
+            with open(path, encoding="utf-8") as f:
+                payload = json.load(f)
+        except (OSError, ValueError) as err:
+            print(f"error: cannot read history: {err}", file=sys.stderr)
+            return 2
+    else:
+        from analyzer_tpu_torch.obs.history import get_history
+
+        payload = get_history().to_json()
+    series = payload.get("series", {})
+    if args.series:
+        series = {
+            name: s for name, s in series.items()
+            if any(name.startswith(p) for p in args.series)
+        }
+        payload = dict(payload, series=series)
+    if args.json:
+        json.dump(payload, sys.stdout, indent=1, sort_keys=True)
+        sys.stdout.write("\n")
+        return 0
+    from analyzer_tpu_torch.obs.history import render_history
+
+    last_t = payload.get("last_sample_t")
+    print(
+        f"history: {len(series)} series, {payload.get('samples', 0)} "
+        f"samples, last_t={last_t}"
+    )
+    sys.stdout.write(render_history(payload, tier=args.tier))
+    return 0
+
+
+def cmd_fleet(args) -> int:
+    """Fleet observability plane (obs/federate.py): scrape N workers'
+    obsd endpoints, merge their registries under the reserved ``host=``
+    label, evaluate the STANDARD objectives at fleet scope with per-host
+    attribution, and serve /fleetz, aggregated /metrics, a fleet /sloz
+    and the fleet history rings. ``--check`` is the CI one-shot: scrape
+    once, evaluate, exit 1 on any burn."""
+    from analyzer_tpu_torch.obs.federate import Collector, FleetServer
+
+    targets = list(args.targets_pos)
+    if args.targets:
+        targets.extend(
+            t.strip() for t in args.targets.split(",") if t.strip()
+        )
+    if not targets:
+        print(
+            "error: no targets (positional host:port... or "
+            "--targets host:port,...)", file=sys.stderr,
+        )
+        return 2
+    collector = Collector(
+        targets,
+        flight_token=args.flight_token,
+        request_flight_dumps=not args.no_flight_requests,
+    )
+    if args.check:
+        burns = collector.check(time.monotonic())
+        down = [
+            t for t, row in collector.fleetz()["hosts"].items()
+            if not row["up"]
+        ]
+        for target in down:
+            print(f"DOWN: {target}")
+        for burn, hosts in burns:
+            where = ", ".join(hosts) if hosts else "fleet-wide"
+            print(f"FLEET BURN: {burn.objective} [{where}] — {burn.detail}")
+        if args.json:
+            json.dump(
+                collector.sloz(), sys.stdout, indent=1, sort_keys=True
+            )
+            sys.stdout.write("\n")
+        if burns or (down and args.require_all_up):
+            return 1
+        up = collector.fleetz()["up"]
+        print(f"fleet ok: {up}/{len(targets)} host(s) up, no burns")
+        return 0
+    server = FleetServer(collector, port=args.port)
+    print(f"fleetd serving /fleetz /metrics /sloz /historyz at {server.url}")
+    scrapes = 0
+    try:
+        while args.scrapes <= 0 or scrapes < args.scrapes:
+            collector.scrape(time.monotonic())
+            scrapes += 1
+            burning = collector.burning
+            if burning:
+                attribution = collector.attribution()
+                for name in burning:
+                    hosts = attribution.get(name)
+                    print(
+                        f"FLEET BURNING: {name} "
+                        f"[{', '.join(hosts) if hosts else 'fleet-wide'}]"
+                    )
+            if args.scrapes > 0 and scrapes >= args.scrapes:
+                break
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.close()
+    return 1 if collector.burning else 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1263,8 +1411,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     s.add_argument(
         "--obs-port", type=int, metavar="PORT",
-        help="live introspection endpoints for the run (not ported yet: "
-        "ROADMAP A16b)",
+        help="serve live introspection endpoints (/metrics /healthz "
+        "/readyz /statusz /debug/snapshot) on localhost:PORT for the "
+        "duration of the run (0 = ephemeral)",
     )
     s.add_argument(
         "--device", default="cuda",
@@ -1304,6 +1453,11 @@ def build_parser() -> argparse.ArgumentParser:
         "ROADMAP A11b)",
     )
     s.add_argument(
+        "--obs-port", type=int, metavar="PORT",
+        help="also serve the obsd introspection endpoints (serve.* "
+        "metrics land in /metrics)",
+    )
+    s.add_argument(
         "--device", default="cuda",
         help="where the served table lives: cuda (default; refuses to "
         "start without a card) or cpu",
@@ -1340,11 +1494,20 @@ def build_parser() -> argparse.ArgumentParser:
     )
     s.add_argument(
         "--obs-port", type=int, metavar="PORT",
-        help="obsd (not ported yet: ROADMAP A16b)",
+        help="obsd: /metrics /healthz /readyz /statusz /debug/snapshot on "
+        "localhost:PORT (also ANALYZER_TPU_OBS_PORT); /readyz 503s while "
+        "the pipelined lane is degraded",
+    )
+    s.add_argument(
+        "--obs-host", metavar="HOST",
+        help="bind obsd on HOST instead of localhost (widening the bind "
+        "is an explicit operator decision)",
     )
     s.add_argument(
         "--flight-dir", metavar="DIR",
-        help="flight-recorder dumps (not ported yet: ROADMAP A16b)",
+        help="arm flight-recorder dumps into DIR (also "
+        "ANALYZER_TPU_FLIGHT_DIR): dead-letters, pipeline degradation "
+        "and SIGUSR1 leave a timestamped artifact directory",
     )
     s.add_argument(
         "--serve-port", type=int, metavar="PORT",
@@ -1367,11 +1530,19 @@ def build_parser() -> argparse.ArgumentParser:
     )
     s.add_argument(
         "--audit", action="store_true",
-        help="shadow audit of served queries (not ported yet: ROADMAP A16b)",
+        help="continuous shadow audit of served queries against the "
+        "bit-exact oracle (needs --serve-port; also ANALYZER_TPU_AUDIT; "
+        "audit.mismatches_total is a zero-tolerance SLO)",
+    )
+    s.add_argument(
+        "--audit-sample-denom", type=int, metavar="N",
+        help="audit 1-in-N served queries (default: 8; 1 = every query)",
     )
     s.add_argument(
         "--no-slo-plane", action="store_true",
-        help="accepted for parity: the SLO plane is off until ROADMAP A16b",
+        help="disable the live SLO plane (history rings + burn-rate "
+        "watchdog + audit) — on by default; /historyz and /sloz then "
+        "serve empty",
     )
     s.add_argument(
         "--device", default="cuda",
@@ -1388,7 +1559,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     s.add_argument(
         "--obs-port", type=int, metavar="PORT",
-        help=f"not ported yet ({A16B}): exits 2",
+        help="serve the live introspection endpoints while the benchmark "
+        "runs (watch /metrics mid-capture; 0 = ephemeral)",
     )
     s.add_argument(
         "--kernel", choices=("reference", "fused"),
@@ -1451,6 +1623,35 @@ def build_parser() -> argparse.ArgumentParser:
         "summary (human digest)",
     )
     s.set_defaults(fn=cmd_metrics)
+
+    s = sub.add_parser(
+        "history",
+        help="render telemetry history rings (live /historyz, a saved "
+        "history.json / flight dump, or this process)",
+    )
+    s.add_argument(
+        "artifact", nargs="?",
+        help="a history.json file or a flight-dump directory "
+        "(default: this process's sampler)",
+    )
+    s.add_argument(
+        "--url", metavar="URL",
+        help="fetch from a live worker's obsd endpoint "
+        "(e.g. http://127.0.0.1:9100 — /historyz is appended)",
+    )
+    s.add_argument(
+        "--series", action="append", default=[], metavar="PREFIX",
+        help="only series whose name starts with PREFIX (repeatable)",
+    )
+    s.add_argument(
+        "--tier", choices=["raw", "10s", "1m"], default="raw",
+        help="downsampling tier to render (default: raw)",
+    )
+    s.add_argument(
+        "--json", action="store_true",
+        help="dump the (filtered) payload as JSON instead of trends",
+    )
+    s.set_defaults(fn=cmd_history)
 
     s = sub.add_parser(
         "trace",
@@ -1583,6 +1784,56 @@ def build_parser() -> argparse.ArgumentParser:
         help="dump the summary as JSON instead of the rendered report",
     )
     s.set_defaults(fn=cmd_quality)
+
+    s = sub.add_parser(
+        "fleet",
+        help="fleet observability plane: scrape N workers' obsd "
+        "endpoints, merge registries under host=, evaluate fleet-scope "
+        "SLO burns with per-host attribution, serve /fleetz",
+    )
+    s.add_argument(
+        "targets_pos", nargs="*", metavar="HOST:PORT",
+        help="worker obsd endpoints to scrape",
+    )
+    s.add_argument(
+        "--targets", metavar="HOST:PORT,...",
+        help="comma-separated target list (merged with positionals)",
+    )
+    s.add_argument(
+        "--port", type=int, default=0,
+        help="fleetd serving port (default: ephemeral, printed)",
+    )
+    s.add_argument(
+        "--interval", type=float, default=2.0, metavar="S",
+        help="scrape cadence in seconds (default: 2)",
+    )
+    s.add_argument(
+        "--scrapes", type=int, default=0, metavar="N",
+        help="stop after N scrape rounds (default: run until ^C); the "
+        "exit code reports whether anything was burning at the end",
+    )
+    s.add_argument(
+        "--check", action="store_true",
+        help="one-shot CI gate: scrape once, evaluate the objectives a "
+        "single sample can judge (absolute counter_zero + worst-host "
+        "gauge_max), exit 1 on any burn",
+    )
+    s.add_argument(
+        "--require-all-up", action="store_true",
+        help="--check also fails when any target is unreachable",
+    )
+    s.add_argument(
+        "--flight-token", metavar="TOKEN",
+        help="shared secret for the burning host's /debug/flight "
+        "trigger (workers read ANALYZER_TPU_FLIGHT_TOKEN)",
+    )
+    s.add_argument(
+        "--no-flight-requests", action="store_true",
+        help="never ask burning hosts for flight dumps",
+    )
+    s.add_argument("--json", action="store_true",
+                   help="--check prints the fleet /sloz payload as JSON")
+    s.set_defaults(fn=cmd_fleet)
     return p
 
 

@@ -21,7 +21,12 @@ write-back mutates it.
 Usage (the card by default; ``--device cpu`` for a CPU rehearsal):
 
     python -m analyzer_tpu_torch.experiments.service_bench --store sqlite \\
-        [--matches 50000] [--no-pipeline] [--lag N] [--device cpu]
+        [--matches 50000] [--no-pipeline] [--lag N] [--no-slo-plane] \\
+        [--device cpu]
+
+The Worker runs with its default planes (the calibration ledger and the
+SLO plane); ``--no-slo-plane`` turns the SLO plane off, for an on/off
+comparison of its cost within one call.
 
 The last line is one JSON object with the run's numbers and the device
 they were measured on.
@@ -177,6 +182,11 @@ def main(argv=None) -> int:
         "warmup cost probe, config.py pipeline_lag)",
     )
     ap.add_argument(
+        "--no-slo-plane", action="store_true",
+        help="disable the Worker's live SLO plane (history rings + "
+        "burn-rate watchdog), on by default",
+    )
+    ap.add_argument(
         "--fixture-dir", default=None,
         help="where the pristine sqlite fixture is built and kept "
         "(default: a fresh temporary directory, removed at exit)",
@@ -217,6 +227,7 @@ def main(argv=None) -> int:
         worker = Worker(
             broker, store, cfg, RatingConfig(),
             pipeline=not args.no_pipeline, device=device,
+            slo_plane=not args.no_slo_plane,
         )
         worker.warmup()
         lag = None
@@ -235,6 +246,7 @@ def main(argv=None) -> int:
         print(json.dumps({
             "store": args.store,
             "pipeline": not args.no_pipeline,
+            "slo_plane": not args.no_slo_plane,
             "matches": len(ids),
             "players": n_players,
             "seconds": got["seconds"],

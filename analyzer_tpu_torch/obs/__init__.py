@@ -19,6 +19,23 @@ path needs:
   * :mod:`~analyzer_tpu_torch.obs.httpd` — the route-table HTTP plumbing
     the serve plane listens through;
 
+the live planes a worker runs (the JAX package's, stdlib only):
+
+  * :mod:`~analyzer_tpu_torch.obs.server` — obsd, the introspection
+    endpoints (``/healthz /readyz /metrics /statusz /historyz /sloz
+    /qualityz /debug/snapshot /debug/flight``);
+  * :mod:`~analyzer_tpu_torch.obs.history` — the tiered history rings;
+  * :mod:`~analyzer_tpu_torch.obs.slo` — the objective table, live burn
+    rates (the :class:`Watchdog`) and the artifact verdict;
+  * :mod:`~analyzer_tpu_torch.obs.flight` — the always-on flight
+    recorder and its throttled dumps;
+  * :mod:`~analyzer_tpu_torch.obs.audit` — the shadow audit of served
+    responses against the bit-exact oracle;
+  * :mod:`~analyzer_tpu_torch.obs.federate` — the fleet Collector and
+    FleetServer (``cli fleet``);
+  * :mod:`~analyzer_tpu_torch.obs.quality` — the calibration ledger
+    (``/qualityz``);
+
 and the device-aware ones, rebuilt on PyTorch:
 
   * :mod:`~analyzer_tpu_torch.obs.devicemem` — device-memory gauges from
@@ -33,15 +50,25 @@ No counterpart: ``analyzer_tpu.obs.retrace`` (``track_jit``,
 ``install_jax_hooks``) counts a jitted entry point's recompiles, and
 nothing in the port is jitted — every device function is eager PyTorch
 or a kernel built once — so the snapshot's ``retraces`` block stays
-empty. Still to port (ROADMAP): the live planes of A16b — ``server``
-(obsd), ``history``, ``slo``, ``quality``, ``flight``, ``audit`` and
-``federate`` — and the offline tools of A16c, ``benchdiff`` and
-``advisor``.
+empty and ``jax.retraces_total`` stays 0. Still to port (ROADMAP): the
+offline tools of A16c, ``benchdiff`` and ``advisor``.
 """
 
+from analyzer_tpu_torch.obs.audit import ShadowAuditor
 from analyzer_tpu_torch.obs.devicemem import (
     maybe_sample as maybe_sample_device_memory,
     sample_device_memory,
+)
+from analyzer_tpu_torch.obs.flight import (
+    FlightRecorder,
+    get_flight_recorder,
+    reset_flight_recorder,
+)
+from analyzer_tpu_torch.obs.history import (
+    HistorySampler,
+    get_history,
+    render_history,
+    reset_history,
 )
 from analyzer_tpu_torch.obs.prof import (
     DeviceProfiler,
@@ -52,6 +79,13 @@ from analyzer_tpu_torch.obs.registry import (
     MetricsRegistry,
     get_registry,
     reset_registry,
+)
+from analyzer_tpu_torch.obs.slo import (
+    STANDARD_OBJECTIVES,
+    Watchdog,
+    get_watchdog,
+    reset_watchdog,
+    soak_violations,
 )
 from analyzer_tpu_torch.obs.snapshot import (
     prometheus_text,
@@ -72,22 +106,35 @@ from analyzer_tpu_torch.obs.tracer import (
 
 __all__ = [
     "DeviceProfiler",
+    "FlightRecorder",
+    "HistorySampler",
     "MetricsRegistry",
+    "STANDARD_OBJECTIVES",
+    "ShadowAuditor",
     "Tracer",
+    "Watchdog",
     "bind_trace",
     "current_trace",
     "get_device_profiler",
+    "get_flight_recorder",
+    "get_history",
     "get_registry",
     "get_tracer",
+    "get_watchdog",
     "instant",
     "maybe_sample_device_memory",
     "prometheus_text",
+    "render_history",
     "render_summary",
     "reset_device_profiler",
+    "reset_flight_recorder",
+    "reset_history",
     "reset_registry",
     "reset_tracer",
+    "reset_watchdog",
     "sample_device_memory",
     "snapshot",
+    "soak_violations",
     "span",
     "write_chrome_trace",
     "write_snapshot",

@@ -21,10 +21,11 @@ Clock-injected and deterministic: every timestamp is passed in by the
 caller, and every bin edge and threshold lives in the ONE table below
 (:data:`QUALITY_TABLE`).
 
-Consumers: the worker's sequential commit site (service/worker.py),
-``cli quality`` and :func:`score_table`. The JAX package's other readers
-(obsd's ``/qualityz``, the SLO plane's drift tick, the soak artifact, the
-migration judge) wait for ROADMAP A16b, A15 and A13.
+Consumers: the worker's sequential commit site and its SLO tick's
+population-drift snapshot (service/worker.py), obsd's ``/qualityz``
+(obs/server.py), the calibration objective (obs/slo.py), ``cli quality``
+and :func:`score_table`. The JAX package's other readers (the soak
+artifact, the migration judge) wait for ROADMAP A15 and A13.
 """
 
 from __future__ import annotations

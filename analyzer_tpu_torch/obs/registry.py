@@ -10,7 +10,11 @@ the SQL store's native-scanner counters ``sql.*`` (the port's own), and
 the rating path's ``sched.*``, ``feed.*``, ``device.*``, ``profile.*`` and
 ``phase_seconds`` families (the runners, the prefetching feed, the
 device-memory sampler, the profile attribution, ``utils.profiling``), and
-the ingest plane's ``ingest.*`` (the columnar decoder, the staging arena). The
+the ingest plane's ``ingest.*`` (the columnar decoder, the staging arena),
+the fused window's ``fused.*``, and the live planes' ``history.*``,
+``slo.*``, ``audit.*``, ``fleet.*`` and ``obs.flight_dumps_total``
+(``jax.retraces_total`` is declared under the JAX name and stays 0:
+nothing in the port is jitted, and an SLO objective names it). The
 JAX package has no ``pipeline.*`` series: its pipelined engine reports
 through the ``worker.pipeline_*`` gauges, and so does the port's.
 
@@ -265,6 +269,39 @@ STANDARD_COUNTERS = (
     "quality.bin_count",
     "quality.bin_p_sum",
     "quality.bin_y_sum",
+    # The fused window's feed (sched/runner.py): windows dispatched (one
+    # fused_window launch each on the card), working-set budget cuts, the
+    # per-step scatter rows fusion eliminated, and the inert padding steps
+    # spills cost. Pre-declared so "never spilled" reads 0.
+    "fused.windows_total",
+    "fused.spills_total",
+    "fused.writebacks_avoided_total",
+    "fused.pad_steps_total",
+    # The JAX package's retrace counter, kept at 0: nothing in the port is
+    # jitted, and the flat-steady-retraces objective (obs/slo.py) names it.
+    "jax.retraces_total",
+    "obs.flight_dumps_total",
+    # The live SLO plane (obs/history.py + obs/slo.py + obs/audit.py):
+    # history-ring samples taken, SLO burn onsets and recoveries seen by
+    # the watchdog, and the shadow audit's sampled / oracle-replayed /
+    # DIVERGED query counts — audit.mismatches_total is the zero-tolerance
+    # objective (zero-audit-mismatches): one increment is a correctness
+    # incident.
+    "history.samples_total",
+    "slo.burns_total",
+    "slo.recoveries_total",
+    "audit.sampled_total",
+    "audit.checked_total",
+    "audit.mismatches_total",
+    # The fleet observability plane (obs/federate.py): Collector scrape
+    # rounds, per-host scrape failures, fleet-scope SLO burn onsets and
+    # recoveries over the merged rings, and flight dumps the Collector
+    # requested from a burning host via its /debug/flight trigger.
+    "fleet.scrapes_total",
+    "fleet.scrape_errors_total",
+    "fleet.burns_total",
+    "fleet.recoveries_total",
+    "fleet.flight_requests_total",
 )
 STANDARD_GAUGES = (
     # The tiered table's two budget gauges: the hot-set capacity in rows
@@ -305,6 +342,25 @@ STANDARD_GAUGES = (
     "quality.brier",
     "quality.ece",
     "quality.psi_mu",
+    # Fused working-set high-water mark in table rows.
+    "fused.working_set_rows",
+    # The live SLO plane: series the history sampler tracks, objectives
+    # currently burning (0 = healthy), per-objective burn state
+    # (slo.state{objective=} series appear on first transition), and the
+    # shadow audit's pending replay backlog.
+    "history.series",
+    "slo.burning",
+    "slo.state",
+    "audit.backlog",
+    # The fleet plane's topology gauges (obs/federate.py): scraped
+    # targets, targets refused past the host cap, objectives burning at
+    # FLEET scope, and the fleet history's tracked series. Per-host
+    # fleet.host_up{host=} series appear on first scrape.
+    "fleet.hosts",
+    "fleet.hosts_dropped",
+    "fleet.host_up",
+    "fleet.burning",
+    "fleet.series",
 )
 
 #: Histogram families the runtime emits (labeled series like
@@ -439,6 +495,36 @@ SCHEMA_HELP = {
     "quality.ece": "running expected calibration error (lower = better)",
     "quality.psi_mu":
         "population-stability index of mu vs the pinned reference window",
+    "fused.windows_total": "fused working-set windows dispatched",
+    "fused.spills_total": "working-set budget window cuts (bulk spills)",
+    "fused.writebacks_avoided_total":
+        "per-step scatter rows the fused window kernel eliminated",
+    "fused.pad_steps_total": "inert padding steps in fused windows",
+    "fused.working_set_rows": "fused working-set high-water mark (rows)",
+    "jax.retraces_total": "XLA retraces observed by the jit listeners",
+    "obs.flight_dumps_total": "flight-recorder artifact dumps written",
+    "history.samples_total": "history-ring sampling rounds",
+    "history.series": "series tracked by the history sampler",
+    "slo.burns_total": "SLO burn onsets seen by the watchdog",
+    "slo.recoveries_total": "SLO burn recoveries",
+    "slo.burning": "objectives currently burning (0 = healthy)",
+    "slo.state": "per-objective burn state (1 = burning)",
+    "audit.sampled_total": "served responses sampled by the shadow audit",
+    "audit.checked_total": "sampled responses replayed through the oracle",
+    "audit.mismatches_total":
+        "served responses that DIVERGED from the bit-exact oracle (SLO: 0)",
+    "audit.backlog": "sampled responses awaiting oracle replay",
+    "fleet.scrapes_total": "Collector scrape rounds across the fleet",
+    "fleet.scrape_errors_total": "per-host scrape failures",
+    "fleet.burns_total": "fleet-scope SLO burn onsets",
+    "fleet.recoveries_total": "fleet-scope SLO burn recoveries",
+    "fleet.flight_requests_total":
+        "flight dumps requested from burning hosts via /debug/flight",
+    "fleet.hosts": "targets the Collector scrapes",
+    "fleet.hosts_dropped": "targets refused past the fleet host cap",
+    "fleet.host_up": "1 while the host's last scrape succeeded",
+    "fleet.burning": "objectives burning at fleet scope",
+    "fleet.series": "series tracked by the fleet history rings",
 }
 
 

@@ -257,6 +257,22 @@ def rate_history(
     )
 
 
+def _record_fused(stats: dict) -> None:
+    """One dispatched chunk's fused-feed observables into the registry
+    (the JAX package's ``residency.record_plan_telemetry`` series): windows
+    dispatched — one ``fused_window`` launch each on the card — budget
+    spills, scatter rows avoided, inert pad steps, and the working-set
+    high-water mark."""
+    reg = get_registry()
+    reg.counter("fused.windows_total").add(stats["windows"])
+    reg.counter("fused.spills_total").add(stats["spills"])
+    reg.counter("fused.writebacks_avoided_total").add(stats["writebacks_avoided"])
+    reg.counter("fused.pad_steps_total").add(stats["pad_steps"])
+    gauge = reg.gauge("fused.working_set_rows")
+    if stats["working_set_rows"] > (gauge.value or 0):
+        gauge.set(stats["working_set_rows"])
+
+
 def _flat(fused_flat: list) -> np.ndarray:
     return (np.concatenate(fused_flat).reshape(-1) if fused_flat
             else np.empty(0, np.int32))
@@ -305,6 +321,7 @@ def _consume(produce, state, pad_row, cfg, fuse, collect, on_chunk, depth,
                         totals[key] = (max(totals[key], val)
                                        if key == "working_set_rows"
                                        else totals[key] + val)
+                    _record_fused(staged.stats)
                 elif tier is not None:
                     ys = tier.dispatch_chunk(
                         table, staged, views, cfg, collect

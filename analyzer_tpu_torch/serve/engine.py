@@ -46,7 +46,7 @@ consistent with exactly one published version (reported as ``version`` in
 every result).
 
 The sharded engine (``ShardedQueryEngine``) is not ported yet (ROADMAP
-A11b), nor is the shadow audit hook (ROADMAP A16b).
+A11b).
 """
 
 from __future__ import annotations
@@ -261,6 +261,7 @@ class _Pending:
 
     __slots__ = (
         "kind", "payload", "done", "value", "error", "t_submit", "t_done",
+        "audit",
     )
 
     def __init__(self, kind: str, payload) -> None:
@@ -271,9 +272,19 @@ class _Pending:
         self.error: BaseException | None = None
         self.t_submit = time.monotonic()
         self.t_done: float | None = None
+        # (auditor, view) when a shadow auditor is attached — set by
+        # _execute before the microbatch runs, consumed in resolve().
+        self.audit = None
 
     def resolve(self, value) -> None:
         self.value = value
+        # Shadow-audit offer BEFORE done.set(): once a caller observes the
+        # response, the sampling decision has already been recorded, so a
+        # drain at any quiesce point sees a deterministic count. The value
+        # is already host numbers; the offer copies nothing off the device.
+        if self.audit is not None:
+            auditor, view = self.audit
+            auditor.offer(self.kind, self.payload, value, view)
         self.t_done = time.monotonic()
         self.done.set()
 
@@ -309,8 +320,12 @@ class QueryEngine:
         :meth:`tick` give a test deterministic coalescing control.
 
     Every result dict carries ``version`` — the exactly-one published
-    version it was computed against. ``auditor`` (the shadow audit hook)
-    must stay None until the audit plane is ported (ROADMAP A16b).
+    version it was computed against. ``auditor`` (an
+    :class:`~analyzer_tpu_torch.obs.audit.ShadowAuditor`, also settable
+    as the attribute, as the worker does) is offered every successfully
+    resolved response at the end of its microbatch: one seeded hash and,
+    for the sampled few, a bounded append; the oracle replay runs in the
+    auditor's ``drain``, off the serving path.
     """
 
     def __init__(
@@ -324,10 +339,7 @@ class QueryEngine:
         device=None,
         auditor=None,
     ) -> None:
-        if auditor is not None:
-            raise NotImplementedError(
-                "auditor= (the shadow audit) is not ported yet (ROADMAP A16b)"
-            )
+        self.auditor = auditor
         self.device = resolve_device(device)
         self.source = source
         self.cfg = cfg or RatingConfig()
@@ -530,6 +542,9 @@ class QueryEngine:
             reg.counter("serve.queries_total").add(len(group))
             reg.counter("serve.queries_total", kind=kind).add(len(group))
             self.queries_total += len(group)
+            if self.auditor is not None:
+                for req in group:
+                    req.audit = (self.auditor, view)
             try:
                 getattr(self, "_run_" + kind)(view, group)
             except Exception as err:  # noqa: BLE001 — a kernel-level

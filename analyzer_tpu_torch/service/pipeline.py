@@ -96,7 +96,7 @@ import torch
 
 from analyzer_tpu_torch.core.state import MU_LO, SIGMA_HI, TABLE_WIDTH
 from analyzer_tpu_torch.logging_utils import get_logger
-from analyzer_tpu_torch.obs import get_registry, get_tracer
+from analyzer_tpu_torch.obs import get_flight_recorder, get_registry, get_tracer
 from analyzer_tpu_torch.obs.tracer import bind_trace, current_trace
 from analyzer_tpu_torch.sched.feed import stage_chunk
 from analyzer_tpu_torch.sched.runner import _Fetch, _gather_outputs, _reference_chunk_
@@ -318,6 +318,8 @@ class _Writer(threading.Thread):
             # A dead writer must not hang every gate wait: poison the
             # stream so submit falls back to the sequential loop.
             logger.exception("pipeline writer store unavailable")
+            get_flight_recorder().note("pipeline.writer_dead",
+                                       why="store factory failed")
             with self.cv:
                 self.poisoned = True
                 self.cv.notify_all()
@@ -355,6 +357,14 @@ class _Writer(threading.Thread):
                     job.error = err
                     logger.error("pipeline writer: batch %d failed: %r",
                                  job.seq, err)
+                    # Breadcrumb BEFORE the worker's harvest dumps the
+                    # flight artifact: the writer thread is where the
+                    # failure happened, and events.log should carry its
+                    # seq + error next to the fetch spans.
+                    get_flight_recorder().note(
+                        "pipeline.writer_failure",
+                        seq=job.seq, error=repr(err),
+                    )
                     rollback = getattr(self.store, "rollback", None)
                     if rollback is not None:
                         try:

@@ -27,24 +27,34 @@ The port's copy of ``analyzer_tpu.service.worker``. Every batch is rated on
 the worker's ``device`` (None = the card) through the port's reference
 superstep (``sched.rate_history``, plain PyTorch on the card — the JAX
 package's worker runs its reference scan there too, not a Pallas kernel).
-The device profiler (``profile_dir``, obs/prof.py) is the JAX worker's:
-armed, it captures one ``torch.profiler`` window around the next batch's
-dispatch on SIGUSR2, after a dead letter and after a pipeline degradation.
-The rating-quality ledger (``quality``, on by default as in the JAX
-package; obs/quality.py) scores each sequentially committed batch's
-pre-update win probabilities against its outcomes: an observer, so the
-worker's results are bit-identical with it on or off. The other
-observability planes of the JAX worker — obsd (``obs_port``), the flight
-recorder (``flight_dir``), the SLO plane (``slo_plane``, with the
-ledger's population-drift tick) and the shadow audit (``audit``) — wait
-for ROADMAP A16b: asking for one raises NotImplementedError, and
-``slo_plane`` defaults to False here until then (the one visible
-difference from the JAX signature; the plane is an observer).
+The observability planes are the JAX worker's, each an observer (the
+committed rows, the published views and the served responses are
+bit-identical with any of them on or off):
+
+  * obsd (``obs_port``, obs/server.py) with the ``worker.pipeline``,
+    ``service.broker``, ``service.store``, ``serve.view`` and
+    ``slo.watchdog`` readiness probes;
+  * the flight recorder (``flight_dir``, obs/flight.py): always recording,
+    dumping on a dead letter, a pipeline degradation, an SLO burn, SIGUSR1
+    and obsd's ``/debug/flight``;
+  * the device profiler (``profile_dir``, obs/prof.py): one
+    ``torch.profiler`` window around the next batch's dispatch on SIGUSR2,
+    after a dead letter, a degradation and an SLO burn;
+  * the SLO plane (``slo_plane``, on by default): history rings on the
+    worker's clock, the burn-rate watchdog, the calibration ledger's
+    population drift, and with ``audit`` the shadow audit of served
+    responses — all on one throttled tick of the consumer thread's poll
+    (``history_interval_s``), never per batch;
+  * the rating-quality ledger (``quality``, on by default, obs/quality.py)
+    scores each sequentially committed batch's pre-update win
+    probabilities against its outcomes.
+
 ``serve_shards > 1`` waits for ROADMAP A11b.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 
@@ -54,7 +64,12 @@ import torch
 from analyzer_tpu_torch.config import RatingConfig, ServiceConfig
 from analyzer_tpu_torch.device import resolve_device
 from analyzer_tpu_torch.logging_utils import get_logger
-from analyzer_tpu_torch.obs import get_device_profiler, get_registry, get_tracer
+from analyzer_tpu_torch.obs import (
+    get_device_profiler,
+    get_flight_recorder,
+    get_registry,
+    get_tracer,
+)
 from analyzer_tpu_torch.obs import tracectx
 from analyzer_tpu_torch.obs.tracer import bind_trace
 from analyzer_tpu_torch.sched import pack_schedule, rate_history
@@ -91,25 +106,12 @@ def _mirrored_counter(attr: str, series: str):
 # inert padding steps out: they would read and write nothing.
 SERVICE_STEP_CHUNK = 8
 
-#: ROADMAP items the refused keywords and flags wait for.
-A16B = "ROADMAP A16b, the live obs planes"
+#: The ROADMAP item ``serve_shards > 1`` waits for.
 A11B = "ROADMAP A11b, the sharded serve plane"
 
 
-def _refuse_planes(obs_port, flight_dir, audit, slo_plane,
-                   serve_shards) -> None:
-    """Raises NotImplementedError for a plane the port does not have yet."""
-    asked = [name for name, on in (
-        ("obs_port", obs_port is not None),
-        ("flight_dir", flight_dir is not None),
-        ("audit", bool(audit)),
-        ("slo_plane", bool(slo_plane)),
-    ) if on]
-    if asked:
-        raise NotImplementedError(
-            f"Worker({', '.join(asked)}) is not ported yet ({A16B}); leave "
-            "these at their defaults (slo_plane=False)"
-        )
+def _refuse_shards(serve_shards) -> None:
+    """Raises NotImplementedError for the sharded serve plane."""
     if serve_shards is not None and serve_shards > 1:
         raise NotImplementedError(
             f"Worker(serve_shards={serve_shards}) is not ported yet ({A11B}); "
@@ -149,7 +151,7 @@ class Worker:
         serve_host: str | None = None,
         serve_shards: int | None = None,
         profile_dir: str | None = None,
-        slo_plane: bool = False,
+        slo_plane: bool = True,
         audit: bool | None = None,
         audit_sample_denom: int | None = None,
         audit_seed: int = 0,
@@ -159,12 +161,16 @@ class Worker:
     ) -> None:
         """``device`` is where every batch is rated (None = the card; it
         raises without one, before anything is declared on the broker).
-        ``obs_host``, ``audit_sample_denom``, ``audit_seed`` and
-        ``history_interval_s`` only tune the planes that wait for A16b and
-        are accepted for signature parity. ``profile_dir`` (or
-        ``ANALYZER_TPU_PROFILE_DIR``) arms the process-wide device
-        profiler (obs/prof.py)."""
-        _refuse_planes(obs_port, flight_dir, audit, slo_plane, serve_shards)
+        ``obs_port`` (0 = ephemeral) starts obsd on ``obs_host`` (default
+        loopback); ``flight_dir`` (or ``ANALYZER_TPU_FLIGHT_DIR``) arms
+        flight-recorder dumps; ``profile_dir`` (or
+        ``ANALYZER_TPU_PROFILE_DIR``) arms the process-wide device profiler
+        (obs/prof.py); ``slo_plane`` runs the history sampler and the
+        watchdog every ``history_interval_s`` of the worker's clock;
+        ``audit`` (None: ``ANALYZER_TPU_AUDIT``) audits 1 in
+        ``audit_sample_denom`` served responses (seeded by
+        ``audit_seed``) when the SLO plane and the serve plane are on."""
+        _refuse_shards(serve_shards)
         self.device = resolve_device(device)
         self.broker = broker
         self.store = store
@@ -180,11 +186,18 @@ class Worker:
         self.dead_letters = 0
         self._started_at = clock()
         self._stop_requested = False
+        # Flight recorder: the ring is always on (process-wide, shared
+        # with the pipeline writer's breadcrumbs); artifact dumps engage
+        # once a directory is configured (flight_dir here, or
+        # ANALYZER_TPU_FLIGHT_DIR in the environment).
+        self.flight = get_flight_recorder()
+        if flight_dir is not None:
+            self.flight.configure(base_dir=flight_dir)
         # Device-time attribution (obs/prof.py): armed by profile_dir here
         # or ANALYZER_TPU_PROFILE_DIR; unarmed it costs one attribute read
         # per batch. SIGUSR2 requests a capture of the next dispatch
-        # window; dead-letters and degradation request one automatically
-        # (throttled).
+        # window; dead-letters, degradation and SLO burns request one
+        # automatically (throttled), and the flight dump names it.
         self.profiler = get_device_profiler()
         if profile_dir is not None:
             self.profiler.configure(profile_dir=profile_dir)
@@ -239,6 +252,33 @@ class Worker:
         broker.declare_queue(c.crunch_queue)
         broker.declare_queue(c.telesuck_queue)
 
+        # obsd (obs/server.py): the live introspection plane. Readiness
+        # combines the pipeline lane's health with duck-typed broker/
+        # store connectivity probes — `curl :port/readyz` flips to 503
+        # the moment the worker degrades to the sequential loop.
+        self.obs_server = None
+        if obs_port is not None:
+            from analyzer_tpu_torch.obs.server import (
+                DEFAULT_HOST, ObsServer, connectivity_probe,
+            )
+
+            self.obs_server = ObsServer(
+                port=obs_port,
+                host=obs_host or DEFAULT_HOST,
+                status_provider=self.stats,
+                # /debug/flight rides the worker's own dump path so a
+                # remotely-triggered artifact carries the config and
+                # device-profiler blocks a local trigger would.
+                flight_dump=self._flight_dump,
+            )
+            health = self.obs_server.health
+            health.register("worker.pipeline", self._pipeline_health)
+            health.register(
+                "service.broker", connectivity_probe(broker, "broker")
+            )
+            health.register(
+                "service.store", connectivity_probe(store, "store")
+            )
         # ratesrv (serve/): the query-serving read plane. The worker
         # publishes a new immutable view version at every batch commit
         # boundary (_publish_view — sequential process() and the
@@ -262,14 +302,71 @@ class Worker:
                 port=serve_port,
                 host=serve_host or LOOPBACK,
             )
+            if self.obs_server is not None:
+                # /readyz flips green only after the first commit
+                # publishes version 1 — a balancer must not route reads
+                # at a worker still warming its view.
+                self.obs_server.health.register(
+                    "serve.view", self._serve_view_health
+                )
+        # The live SLO plane: the history sampler records the registry
+        # into trend rings on THIS worker's clock, the watchdog evaluates
+        # the objective table as multi-window burn rates over those rings
+        # — flipping /readyz degraded and capturing a flight dump + device
+        # profile at first burn — and the shadow auditor replays a
+        # seeded-hash sample of served queries through the bit-exact
+        # oracle off the hot path. One throttled _slo_tick per poll;
+        # slo_plane=False disables all three (the bit-identity AB knob).
+        self.history = None
+        self.watchdog = None
+        self.auditor = None
+        self._history_interval_s = float(history_interval_s)
+        self._history_sampled_at: float | None = None
+        if slo_plane:
+            from analyzer_tpu_torch.obs.devicemem import maybe_sample
+            from analyzer_tpu_torch.obs.history import get_history
+            from analyzer_tpu_torch.obs.slo import get_watchdog
+
+            self.history = get_history()
+            # Device-memory gauges refresh ahead of every sample so memory
+            # growth is trend-visible (the leak burn-rate SLO's data
+            # source). torch.cuda.memory_stats runs here, on the
+            # throttled tick, never per batch.
+            self.history.add_probe(maybe_sample)
+            self.watchdog = get_watchdog()
+            self.watchdog.on_burn = self._on_slo_burn
+            if self.obs_server is not None:
+                self.obs_server.health.register(
+                    "slo.watchdog", self.watchdog.healthy
+                )
+            if audit is None:
+                audit = bool(
+                    os.environ.get("ANALYZER_TPU_AUDIT", "") not in ("", "0")
+                )
+            if audit and self.query_engine is not None:
+                from analyzer_tpu_torch.obs.audit import (
+                    DEFAULT_SAMPLE_DENOM,
+                    ShadowAuditor,
+                )
+
+                self.auditor = ShadowAuditor(
+                    cfg=self.rating_config,
+                    tier_edges=self.query_engine.tier_edges,
+                    seed=audit_seed,
+                    sample_denom=(
+                        audit_sample_denom if audit_sample_denom is not None
+                        else DEFAULT_SAMPLE_DENOM
+                    ),
+                )
+                self.query_engine.auditor = self.auditor
         # The rating-quality plane (obs/quality.py): at every sequential
         # commit the ledger scores the batch's PRE-update predicted win
         # probabilities (the serve plane's Phi link over the prior
         # ratings) against the realized outcomes, mirrored into quality.*
-        # counters. An observer: nothing here feeds back into the rating
-        # path, so results are bit-identical with the plane on or off
-        # (quality=False is the AB knob). Its population-drift snapshots
-        # ride the SLO plane's tick, which waits for ROADMAP A16b.
+        # counters; drift snapshots ride the throttled _slo_tick. An
+        # observer: nothing here feeds back into the rating path, so
+        # results are bit-identical with the plane on or off
+        # (quality=False is the AB knob, like slo_plane).
         self.quality = None
         if quality:
             from analyzer_tpu_torch.obs.quality import (
@@ -292,6 +389,7 @@ class Worker:
                 self._first_message_at = self.clock()
             self.queue.extend(got)
         self._sample_queue_depth()
+        self._slo_tick()
         full = len(self.queue) >= self.config.batch_size
         idle = (
             self._first_message_at is not None
@@ -339,6 +437,76 @@ class Worker:
         reg.gauge("broker.queue_depth").set(depth)
         reg.gauge("broker.queue_depth", queue=self.config.queue).set(depth)
 
+    def _slo_tick(self) -> None:
+        """One throttled pass of the live SLO plane, on the consumer
+        thread: refresh the serve gauges the sampler reads, drain a
+        bounded slice of the shadow-audit backlog (the oracle replay runs
+        here, never on the serving path), snapshot the calibration
+        ledger's population drift over the served view, record a history
+        sample at THIS worker's clock and evaluate the watchdog. Nothing
+        here branches into the rating path. A failing tick is logged and
+        the loop goes on."""
+        if self.history is None:
+            return
+        now = self.clock()
+        if (
+            self._history_sampled_at is not None
+            and now - self._history_sampled_at < self._history_interval_s
+        ):
+            return
+        self._history_sampled_at = now
+        try:
+            if self.view_publisher is not None:
+                reg = get_registry()
+                reg.gauge("serve.view_version").set(self.view_publisher.version)
+                age = self.view_publisher.view_age_s()
+                if age is not None:
+                    reg.gauge("serve.view_age_seconds").set(round(age, 3))
+            if self.auditor is not None:
+                self.auditor.drain(limit=64)
+            if self.quality is not None and self.view_publisher is not None:
+                # Population drift over the COMMITTED table (the served
+                # view — the surface readers see): one device-to-host copy
+                # per view version, throttled to the history interval.
+                view = self.view_publisher.current()
+                if view is not None:
+                    self.quality.observe_population(
+                        view.host_table(), now=now
+                    )
+            self.history.sample(now)
+            if self.watchdog is not None:
+                self.watchdog.check(now)
+        except Exception:  # noqa: BLE001 — the SLO plane must never
+            # take down the consume loop it observes.
+            logger.exception("SLO plane tick failed")
+
+    def _on_slo_burn(self, objective, burn) -> None:
+        """First-burn evidence capture: the flight recorder freezes the
+        trajectory INTO the burn (history.json rides the dump) and the
+        device profiler arms a capture of the next dispatch window —
+        both throttled, both no-ops when unarmed."""
+        logger.warning("SLO burn: %s — %s", objective.name, burn.detail)
+        if (
+            getattr(objective, "kind", None) == "calibration"
+            and self.quality is not None
+        ):
+            # Name the worst reliability bin while the evidence is fresh:
+            # WHERE the predictions are off, not just that they are.
+            wb = self.quality.worst_bin()
+            if wb is not None:
+                logger.warning(
+                    "calibration burn: worst reliability bin "
+                    "[%s, %s): mean_p=%s mean_y=%s over %s matches",
+                    wb["lo"], wb["hi"], wb["mean_p"], wb["mean_y"],
+                    wb["count"],
+                )
+                self.flight.note("quality.worst_bin", **wb)
+        self.flight.note(
+            "slo.burn", objective=objective.name, detail=burn.detail
+        )
+        self.profiler.request("slo_burn")
+        self._flight_dump(f"slo-{objective.name}")
+
     def request_stop(self) -> None:
         """Asks the consume loop to exit after the current batch. Safe
         from a signal handler (single flag write). The reference has no
@@ -359,11 +527,11 @@ class Worker:
         a test against a mis-seeded broker fails loudly instead of
         spinning forever. ``install_signal_handlers`` wires SIGTERM and
         SIGINT to :meth:`request_stop` (drain in-flight batches, exit
-        cleanly) and SIGUSR1 to a ``stats()`` log line WITHOUT stopping —
-        the operator's "what is this worker doing right now" signal
-        (main-thread only), and SIGUSR2 to a device-profiler capture of the
-        next batch's dispatch. The JAX worker's flight dump on SIGUSR1
-        waits for ROADMAP A16b."""
+        cleanly, flush a final snapshot) and SIGUSR1 to a flight-recorder
+        dump + ``stats()`` log line WITHOUT stopping — the operator's
+        "what is this worker doing right now" signal — and SIGUSR2 to a
+        device-profiler capture of the next batch's dispatch (main-thread
+        only: ``signal.signal`` raises elsewhere)."""
         # NOT reset here: a stop requested before run() must be honored
         # (it is cleared on the stop exit below so the worker is reusable).
         previous_handlers = {}
@@ -403,6 +571,10 @@ class Worker:
                         "stop requested; exiting after %s batches: %s",
                         flushes, self.stats(),
                     )
+                    # Everything committed + acked above; flush one last
+                    # snapshot so the shutdown state is inspectable after
+                    # the process is gone.
+                    self._final_snapshot()
                     return
                 if deadline is not None and self.clock() > deadline:
                     target = "" if max_flushes is None else f"/{max_flushes}"
@@ -624,9 +796,15 @@ class Worker:
         get_tracer().instant(
             "worker.dead_letter", cat="worker", messages=len(messages)
         )
+        # The flight recorder freezes the last seconds BEFORE this point —
+        # spans, log tail, batch breadcrumbs — into an artifact dir
+        # (throttled). The failure policy above already completed, so a
+        # dump failure costs nothing but the artifact.
+        self.flight.note("dead_letter", messages=len(messages))
         # Device-time attribution for the failure window: a (throttled)
-        # capture of the NEXT dispatch.
+        # capture of the NEXT dispatch, named in the dump below.
         self.profiler.request("dead_letter")
+        self._flight_dump("dead_letter")
 
     def try_process(self) -> None:
         """Routes the flushed batch: the sequential reference-shaped path
@@ -711,6 +889,7 @@ class Worker:
             reason,
         )
         self.profiler.request("pipeline_degraded")
+        self._flight_dump("pipeline_degraded")
         set_prefetch = getattr(self.broker, "set_prefetch", None)
         if set_prefetch is not None:
             try:
@@ -720,18 +899,30 @@ class Worker:
 
     def drain(self) -> None:
         """Blocks until every in-flight pipelined batch has committed (or
-        its failure policy has been applied). No-op in sequential mode."""
+        its failure policy has been applied). Also drains the shadow-audit
+        backlog: a bounded-run exit must not leave sampled queries
+        unreplayed."""
         if self._engine is not None:
             self._engine.drain()
+        if self.auditor is not None:
+            self.auditor.drain()
 
     def close(self) -> None:
         """Releases the pipelined engine (writer thread + its cloned
-        store connection) after draining, and stops ratesrv. A Worker is
-        reusable after close — the next pipelined flush builds a fresh
-        engine (ratesrv is not rebuilt: its lifetime is the process's)."""
+        store connection) after draining, drains the audit, releases the
+        process-wide watchdog hook and ``/qualityz`` registration, and
+        stops obsd + ratesrv. A Worker is reusable after close — the next
+        pipelined flush builds a fresh engine (obsd/ratesrv are not
+        rebuilt: their lifetime is the process's)."""
         if self._engine is not None:
             self._engine.close()
             self._engine = None
+        if self.auditor is not None:
+            self.auditor.drain()
+        if self.watchdog is not None and self.watchdog.on_burn == self._on_slo_burn:
+            # The watchdog is process-wide; a closed worker must not keep
+            # receiving burn callbacks through it.
+            self.watchdog.on_burn = None
         if self.quality is not None:
             from analyzer_tpu_torch.obs.quality import (
                 get_quality_ledger,
@@ -748,6 +939,9 @@ class Worker:
         if self.query_engine is not None:
             self.query_engine.close()
             self.query_engine = None
+        if self.obs_server is not None:
+            self.obs_server.close()
+            self.obs_server = None
 
     def _try_process_pipelined(self, batch) -> None:
         from analyzer_tpu_torch.service.pipeline import PipelineFallback
@@ -892,6 +1086,7 @@ class Worker:
             enc = self._encode_batch(ids)
         n = len(enc.matches) if enc is not None else 0
         logger.info("processing batch of %s matches", n)
+        self.flight.note_batch(len(ids), n, first_id=ids[0] if ids else None)
         if not n:
             return []
         # Pre-update prior snapshot for the calibration ledger: ONE
@@ -1003,10 +1198,43 @@ class Worker:
             # because the read plane could not take the update.
             logger.exception("ratings view publish failed")
 
+    def _serve_view_health(self) -> tuple[bool, str]:
+        """obsd readiness probe: green once a view has been published."""
+        view = self.view_publisher.current()
+        if view is None:
+            return False, "no ratings view published yet"
+        return True, f"view v{view.version} ({view.n_players} players)"
+
+    # -- observability ----------------------------------------------------
+    def _pipeline_health(self) -> tuple[bool, str]:
+        """Readiness probe: a degraded pipelined worker still serves (the
+        sequential loop rates correctly) but at lower throughput — a load
+        balancer should stop preferring it, which is exactly what a 503
+        readiness means."""
+        if self.pipeline_degraded:
+            return False, "pipeline degraded: sequential fallback active"
+        if self.pipeline_enabled:
+            return True, "pipelined"
+        return True, "sequential by config"
+
+    def _flight_dump(self, reason: str, force: bool = False) -> str | None:
+        """One flight-recorder artifact for a failure path. Never raises
+        (obs/flight.py owns the throttle + error swallowing); the config
+        capture rides along so the artifact explains the worker's knobs,
+        and the device profiler's capture info names the torch.profiler
+        directory when one is armed. Returns the artifact path (None when
+        unarmed or throttled) — obsd's /debug/flight reports it."""
+        return self.flight.dump(
+            reason, config=dataclasses.asdict(self.config), force=force,
+            profile=self.profiler.capture_info(),
+        )
+
     def _on_sigusr1(self, *_args) -> None:
-        """SIGUSR1: a stats line WITHOUT stopping. Runs on the main thread
-        between bytecodes (Python signal semantics)."""
+        """SIGUSR1: dump + stats WITHOUT stopping. Runs on the main thread
+        between bytecodes (Python signal semantics), so the file IO here
+        cannot interleave with a batch mid-commit."""
         logger.info("SIGUSR1: %s", self.stats())
+        self._flight_dump("sigusr1", force=True)
 
     def _on_sigusr2(self, *_args) -> None:
         """SIGUSR2: request a device-profiler capture of the NEXT batch's
@@ -1019,6 +1247,23 @@ class Worker:
             )
             return
         self.profiler.request("sigusr2", force=True)
+
+    def _final_snapshot(self) -> None:
+        """The graceful-shutdown snapshot: written into the flight
+        recorder's directory (no-op when none is configured — tests and
+        embedded workers must not litter their cwd)."""
+        base = self.flight.base_dir
+        if base is None:
+            return
+        from analyzer_tpu_torch.obs import write_snapshot
+
+        try:
+            os.makedirs(base, exist_ok=True)
+            path = os.path.join(base, f"final-snapshot-{os.getpid()}.json")
+            write_snapshot(path)
+            logger.info("final metrics snapshot written to %s", path)
+        except Exception:  # noqa: BLE001 — shutdown must complete regardless
+            logger.exception("final snapshot failed")
 
     @property
     def matches_per_sec(self) -> float:
@@ -1035,10 +1280,11 @@ class Worker:
         also pushes the worker's current gauges, so a snapshot taken
         right after ``stats()`` carries the same picture.
         ``tests/test_service.py::TestStats`` pins the key schema — a
-        dropped key here silently breaks a metrics scraper. The ``slo``,
+        dropped key here silently breaks a metrics scraper. The
         ``migration`` and ``fabric`` blocks are None until their planes
-        are ported (ROADMAP A16b, A13, A15); ``quality`` is the
-        calibration ledger's digest (None with ``quality=False``)."""
+        are ported (ROADMAP A13, A15); ``slo`` is the SLO plane's digest
+        (None with ``slo_plane=False``) and ``quality`` the calibration
+        ledger's (None with ``quality=False``)."""
         # The engine is built lazily at the first flush, but the lag is
         # already resolved (warmup probe / pinned config) — report it
         # whenever pipelined mode is on, None only when it's off.
@@ -1081,15 +1327,27 @@ class Worker:
             # The migration block: None until the migration engine is
             # ported (ROADMAP A13) and a backfill has run in this process.
             "migration": None,
-            # The SLO plane's and the fabric membership's blocks: None
-            # until ROADMAP A16b / A15 port them (the JAX worker reports
-            # None with those planes off).
-            "slo": None,
+            # The live SLO plane's digest (None when slo_plane=False):
+            # what's burning, plus the shadow audit's counters when
+            # auditing is on — /sloz and /historyz carry the detail.
+            "slo": (
+                {
+                    "burning": self.watchdog.burning,
+                    "history_samples": self.history.samples,
+                    "audit": (
+                        self.auditor.stats()
+                        if self.auditor is not None else None
+                    ),
+                }
+                if self.watchdog is not None else None
+            ),
             # The rating-quality plane's digest: scored matches, running
             # Brier / ECE, drift PSI (obs/quality.py).
             "quality": (
                 self.quality.stats() if self.quality is not None else None
             ),
+            # Fabric membership: None until ROADMAP A15 ports the fabric
+            # (the JAX worker reports None off-fabric).
             "fabric": None,
         }
 
@@ -1162,8 +1420,10 @@ def main(
     serve_shards: int | None = None,
     profile_dir: str | None = None,
     audit: bool | None = None,
-    slo_plane: bool = False,
+    slo_plane: bool = True,
     device=None,
+    obs_host: str | None = None,
+    audit_sample_denom: int | None = None,
 ) -> Worker:
     """``python -m analyzer_tpu_torch.service.worker`` — the reference's
     ``python3 worker.py`` entry point (``worker.py:219-221``), requiring a
@@ -1174,13 +1434,17 @@ def main(
     wall-clock deadline so they fail loudly rather than spin). Returns
     the Worker for inspection after a bounded run.
 
-    ``serve_port`` (or ``ANALYZER_TPU_SERVE_PORT``) co-hosts the ratesrv
-    query plane; ``device`` is where batches are rated (None = the card).
-    ``profile_dir`` (or ``ANALYZER_TPU_PROFILE_DIR``) arms on-demand
-    ``torch.profiler`` capture windows — SIGUSR2, automatic on
-    dead-letter/degradation. ``obs_port``/``flight_dir``/``audit``/
-    ``slo_plane`` (and their ``ANALYZER_TPU_*`` variables) wait for
-    ROADMAP A16b and ``serve_shards > 1`` for A11b: asking for one raises
+    ``obs_port`` (or ``ANALYZER_TPU_OBS_PORT``) starts obsd on
+    ``obs_host``; ``flight_dir`` (or ``ANALYZER_TPU_FLIGHT_DIR``) arms
+    flight-recorder dumps; ``serve_port`` (or ``ANALYZER_TPU_SERVE_PORT``)
+    co-hosts the ratesrv query plane; ``profile_dir`` (or
+    ``ANALYZER_TPU_PROFILE_DIR``) arms on-demand ``torch.profiler`` capture
+    windows — SIGUSR2, automatic on dead-letter/degradation/SLO burn;
+    ``audit`` (or ``ANALYZER_TPU_AUDIT=1``) turns on the continuous shadow
+    audit of 1 in ``audit_sample_denom`` served queries against the
+    bit-exact oracle; ``slo_plane=False`` disables the history sampler +
+    SLO watchdog + audit entirely; ``device`` is where batches are rated
+    (None = the card). ``serve_shards > 1`` (ROADMAP A11b) raises
     NotImplementedError before anything connects."""
     config = ServiceConfig.from_env()
     if obs_port is None and os.environ.get("ANALYZER_TPU_OBS_PORT"):
@@ -1193,7 +1457,7 @@ def main(
     profile_dir = profile_dir or os.environ.get("ANALYZER_TPU_PROFILE_DIR")
     if audit is None and os.environ.get("ANALYZER_TPU_AUDIT", "") not in ("", "0"):
         audit = True
-    _refuse_planes(obs_port, flight_dir, audit, slo_plane, serve_shards)
+    _refuse_shards(serve_shards)
     device = resolve_device(device)
     from analyzer_tpu_torch.service.broker import make_pika_broker
 
@@ -1215,8 +1479,11 @@ def main(
 
         store = InMemoryStore()
     worker = Worker(
-        broker, store, config, serve_port=serve_port,
-        serve_shards=serve_shards, profile_dir=profile_dir, device=device,
+        broker, store, config, obs_port=obs_port, obs_host=obs_host,
+        flight_dir=flight_dir, serve_port=serve_port,
+        serve_shards=serve_shards, profile_dir=profile_dir, audit=audit,
+        audit_sample_denom=audit_sample_denom, slo_plane=slo_plane,
+        device=device,
     )
     worker.warmup()  # first touch of the device before consuming
     try:

@@ -77,7 +77,11 @@ lines:
      export (it holds no causal-trace events); on the same prefix a
      bounded run with periodic
      checkpoints plus ``--resume`` must equal a one-shot checkpointed run
-     bit for bit, and so must ``cli rate --hot-rows``;
+     bit for bit, and so must ``cli rate --hot-rows``; ``cli rate
+     --obs-port 0 --kernel fused --checkpoint`` on the prefix, with a thread
+     scraping obsd's ``/metrics`` at 20 Hz, must write [prefix]'s table bit
+     for bit, and its last scrape's ``fused.windows_total`` must equal the
+     run's ``fused_window`` launches;
  10. serve-http: ``python -m analyzer_tpu_torch.cli serve --checkpoint`` on
      that one-shot checkpoint as a subprocess on the card, queried through
      ``cli query`` for each kind: bodies equal the in-process engine's;
@@ -121,6 +125,18 @@ lines:
      rate the first ``QUALITY_IDS`` ids sequentially with ``quality=True``
      and ``quality=False``: written rows, deterministic stats and topic
      traffic equal bit for bit;
+ 13a. planes: two more copies rate the first ``PLANES_IDS`` ids
+     sequentially with the serve plane on — one Worker with obsd, the
+     flight recorder, the SLO plane and a shadow audit of every served
+     query, one with every plane off — each answering one query of each
+     kind after every flush: rows and responses equal bit for bit, both
+     walls printed. While the planes run a client thread hits every
+     ``/v1/*`` route and every obsd route (each route's HTTP statuses
+     printed); then ``cli fleet --check`` on its obsd exits 0, the audit
+     has checked responses with 0 mismatches, and a poisoned match's dead
+     letter burns a doctored zero-dead-letters objective over a 2 s window:
+     ``/readyz`` turns 503, and the flight dump the burn wrote holds
+     ``history.json``, which ``cli history`` renders;
  13b. models: BASELINE configs 1, 3 and 4 through the port's cli on the
      card. ``synth --matches 200000 --players 40000 --seed 7`` with
      ``--telemetry``, and with ``--synergy 2.0`` (BASELINE.md's
@@ -148,7 +164,8 @@ lines:
      must show both bit-identities (fused = reference, tiered = resident),
      a roofline whose device time came from the profile with
      ``fused_window`` the dominant kernel, and ``min_over_reference``,
-     ``streamed.min_over_device`` and the tracing tax;
+     ``streamed.min_over_device``, the tracing tax and the
+     ``watchdog_overhead`` and ``federate_overhead`` blocks (printed);
  15. ingest: ``cli bench --ingest`` at its defaults (200,000 matches,
      windows of 4096 rows), ``BENCH_REPEATS=2``: native decoder, pinned
      slabs, arena hit rate >= 0.9, ``ingest.fallbacks_total`` 0 in its
@@ -302,6 +319,22 @@ LOSS_ATOL = 2e-4
 ELO_ATOL, EXP_ATOL = 2e-3, 1e-5
 # [worker]: the ledger-on and ledger-off sequential runs over these ids.
 QUALITY_IDS = 10_000
+# [planes]: the live obs planes on against every plane off, sequential over
+# these ids of [worker]'s fixture, one query of each kind after every
+# PLANES_QUERY_EVERY-th flush, and a client thread hitting the serve plane
+# and these obsd routes every PLANES_CLIENT_S seconds while the planes run.
+# The audit replays every served response through the pure-Python oracle,
+# and a leaderboard, tier or percentile replay walks the whole table
+# (~16,666 rows here), so the query rates are kept low.
+PLANES_IDS = 10_000
+PLANES_QUERY_EVERY = 4
+PLANES_CLIENT_S = 1.0
+OBSD_ROUTES = (
+    "/healthz", "/readyz", "/metrics", "/statusz", "/historyz", "/sloz",
+    "/qualityz", "/debug/snapshot", "/debug/flight?reason=chip-smoke",
+)
+# [cli]: the /metrics scrape of a rate run's obsd, 20 Hz.
+SCRAPE_S = 0.05
 
 
 def log(msg: str) -> None:
@@ -1336,7 +1369,7 @@ def worker_phase(cli, tmp: str, dev, n_matches: int = WORKER_MATCHES) -> dict:
     t_build = time.perf_counter() - t0
     copies = {k: os.path.join(tmp, f"service_{k}.db")
               for k in ("sequential", "pipelined", "cli", "poison", "quality_on",
-                        "quality_off")}
+                        "quality_off", "planes_on", "planes_off")}
     for path in copies.values():
         _sh.copy(pristine, path)
     ids = match_ids(pristine)
@@ -1483,7 +1516,9 @@ def worker_phase(cli, tmp: str, dev, n_matches: int = WORKER_MATCHES) -> dict:
         f"its rows exactly: {same}")
     if not same:
         raise AssertionError("worker player rows differ from cli rate --db's")
-    return {"launches_worker_cli": cli_launches, **captured}
+    return {"launches_worker_cli": cli_launches, **captured,
+            "planes": ({True: copies["planes_on"], False: copies["planes_off"]},
+                       ids)}
 
 
 def quality_block(ledger) -> None:
@@ -1534,6 +1569,215 @@ def quality_on_off(copies: dict, ids: list, dev, dump) -> None:
         raise AssertionError("[worker] the quality ledger changed the worker's output")
 
 
+def http_status(url: str) -> tuple[int, bytes]:
+    """One GET: (status, body), an HTTP error's included."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as err:
+        return err.code, err.read()
+
+
+def served_now(engine) -> list:
+    """One query of each kind through the engine, over the players the
+    current view ranks first."""
+    lb = engine.leaderboard(20)
+    ids = [e["id"] for e in lb["leaders"]]
+    return [lb, engine.get_ratings(ids), engine.win_probability(ids[:5], ids[5:10]),
+            engine.tier_histogram(), engine.percentile(500.0)]
+
+
+def planes_phase(cli, dev, paths: dict, all_ids: list, flight_dir: str) -> None:
+    """Phase [planes]: the live obs planes on the card. Two sequential
+    Workers over the first ``PLANES_IDS`` ids of [worker]'s fixture with
+    the serve plane on: one with obsd, the flight recorder, the SLO plane
+    and an audit of every served query, one with every plane off. After
+    each flush both answer one query of each kind in process; the rows they
+    commit and those responses must be equal bit for bit. While the first
+    runs, a client thread hits ``/v1/*`` and every obsd route; then
+    ``cli fleet --check`` exits 0, the audit has checked responses with no
+    mismatch, and a poisoned match's dead letter burns a doctored
+    zero-tolerance objective over a 2 s window: ``/readyz`` turns 503 and
+    the flight dump the burn wrote holds ``history.json``, which ``cli
+    history`` renders."""
+    import glob
+    import sqlite3
+
+    from analyzer_tpu_torch.config import RatingConfig, ServiceConfig
+    from analyzer_tpu_torch.obs import (
+        get_registry, reset_flight_recorder, reset_history, reset_registry,
+        reset_watchdog,
+    )
+    from analyzer_tpu_torch.obs import slo
+    from analyzer_tpu_torch.service import InMemoryBroker, SqlStore, Worker
+
+    standard = slo.STANDARD_OBJECTIVES
+    n = min(PLANES_IDS, len(all_ids) // 2)
+    ids = all_ids[:n]
+    # The phase's own process-wide telemetry: [worker]'s poison drill left a
+    # dead letter in the registry that a fleet check would read.
+    reset_registry()
+    reset_history()
+    reset_watchdog()
+    reset_flight_recorder()
+
+    def dump(path):
+        conn = sqlite3.connect(path)
+        try:
+            return [conn.execute(f'SELECT * FROM "{t}" ORDER BY rowid').fetchall()
+                    for t in ("player", "participant", "participant_items", "match")]
+        finally:
+            conn.close()
+
+    got = {}
+    for on in (True, False):
+        planes = (dict(obs_port=0, flight_dir=flight_dir, audit=True,
+                       audit_sample_denom=1) if on
+                  else dict(slo_plane=False, quality=False))
+        broker = InMemoryBroker()
+        cfg = ServiceConfig(batch_size=WORKER_BATCH, idle_timeout=0)
+        w = Worker(broker, SqlStore(f"sqlite:///{paths[on]}"), cfg, RatingConfig(),
+                   pipeline=False, serve_port=0, device=dev, **planes)
+        statuses: dict = {}
+        stop = threading.Event()
+
+        def client():
+            serve, obsd = w.serve_server.url, w.obs_server.url
+            while not stop.is_set():
+                routes = {"/v1/leaderboard": serve + "/v1/leaderboard?k=10",
+                          "/v1/tiers": serve + "/v1/tiers?score=500"}
+                view = w.view_publisher.current()
+                if view is not None and view.n_players >= 10:
+                    a = ",".join(view.id_of(r) for r in range(5))
+                    b = ",".join(view.id_of(r) for r in range(5, 10))
+                    routes["/v1/ratings"] = f"{serve}/v1/ratings?ids={a},{b}"
+                    routes["/v1/winprob"] = f"{serve}/v1/winprob?a={a}&b={b}"
+                for route in OBSD_ROUTES:
+                    routes[route.split("?")[0]] = obsd + route
+                for name, url in routes.items():
+                    statuses.setdefault(name, set()).add(http_status(url)[0])
+                stop.wait(PLANES_CLIENT_S)
+
+        replay = [0, 0.0]  # responses the audit replayed, seconds it took
+        if on:
+            drain = w.auditor.drain
+
+            def timed_drain(limit=None):
+                t = time.perf_counter()
+                k = drain(limit)
+                replay[0] += k
+                replay[1] += time.perf_counter() - t
+                return k
+
+            w.auditor.drain = timed_drain
+        try:
+            w.warmup()
+            thread = threading.Thread(target=client, daemon=True) if on else None
+            for mid in ids:
+                broker.publish(cfg.queue, mid.encode())
+            served = []
+            flushes = 0
+            t0 = time.perf_counter()
+            if thread is not None:
+                thread.start()
+            while w.poll():
+                flushes += 1
+                if flushes % PLANES_QUERY_EVERY == 1:
+                    served.append(served_now(w.query_engine))
+            served.append(served_now(w.query_engine))
+            w.drain()
+            wall = time.perf_counter() - t0
+            stop.set()
+            if thread is not None:
+                thread.join(timeout=60)
+            stats = w.stats()
+            if not on:
+                got[on] = (dump(paths[on]), served, wall, stats)
+                continue
+            target = w.obs_server.url[len("http://"):]
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["fleet", "--check", target])
+            log(f"[planes] cli fleet --check {target} while healthy: exit {rc}, "
+                f"{buf.getvalue().strip()!r}")
+            if rc != 0:
+                raise AssertionError("[planes]: cli fleet --check failed on a healthy worker")
+            audit = w.auditor.stats()
+            log(f"[planes] while the planes ran, HTTP status of every route: "
+                + ", ".join(f"{k} {sorted(v)}" for k, v in sorted(statuses.items())))
+            log(f"[planes] shadow audit on the card: {audit}; the consumer thread "
+                f"replayed {replay[0]} responses in {replay[1]:.3f} s "
+                f"({replay[0] / max(replay[1], 1e-9):,.1f} responses/s)")
+            if audit["checked"] == 0 or audit["mismatches"] or \
+                    get_registry().counter("audit.mismatches_total").value:
+                raise AssertionError(f"[planes]: audit {audit}")
+            if any(route not in statuses for route in
+                   ("/v1/ratings", "/v1/winprob", "/v1/leaderboard", "/v1/tiers")):
+                raise AssertionError(f"[planes]: routes never hit: {sorted(statuses)}")
+            for route in OBSD_ROUTES:
+                name = route.split("?")[0]
+                if not statuses[name] <= ({200, 503} if name == "/readyz" else {200}):
+                    raise AssertionError(f"[planes]: {name} answered {statuses[name]}")
+            got[on] = (dump(paths[on]), served, wall, stats)
+            # The injected burn: one poisoned match after the compared run,
+            # judged by a doctored objective — zero-dead-letters over a 2 s
+            # window. The standard 60 s window cannot be relied on in a
+            # process whose history is younger than a minute: its 1m tier's
+            # bucket may hold the dead letter already and serve as the
+            # baseline (the JAX package's window_rows, ported as it is).
+            slo.STANDARD_OBJECTIVES = standard + (slo.Objective(
+                "smoke-dead-letters", "counter_zero", "worker.dead_letters_total",
+                windows=(2.0,)),)
+            conn = sqlite3.connect(paths[on])
+            bad = conn.execute("SELECT api_id FROM match WHERE game_mode != 'aral' "
+                               "ORDER BY created_at LIMIT 1 OFFSET ?", (n + 10,)).fetchone()[0]
+            conn.execute("DELETE FROM participant_items WHERE participant_api_id "
+                         "IN (SELECT api_id FROM participant WHERE match_api_id = ?)",
+                         (bad,))
+            conn.commit()
+            conn.close()
+            broker.publish(cfg.queue, bad.encode())
+            deadline = time.monotonic() + 30
+            while "smoke-dead-letters" not in w.watchdog.burning \
+                    and time.monotonic() < deadline:
+                w.poll()
+                time.sleep(0.1)
+            code, body = http_status(w.obs_server.url + "/readyz")
+            dumps = glob.glob(os.path.join(flight_dir, "flight-*slo-smoke-dead-letters*"))
+            log(f"[planes] poisoned match {bad}: dead letters {w.dead_letters}, burning "
+                f"{w.watchdog.burning}; /readyz {code}: {body.decode().strip()!r}; "
+                f"flight dumps {sorted(os.path.basename(d) for d in dumps)}")
+            if code != 503 or b"smoke-dead-letters" not in body or len(dumps) != 1:
+                raise AssertionError("[planes]: the burn did not flip /readyz or dump")
+            files = sorted(os.listdir(dumps[0]))
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["history", dumps[0], "--series", "worker.dead_letters"])
+            out = buf.getvalue()
+            log(f"[planes] the burn's dump holds {files}; cli history <dump> exit {rc}: "
+                f"{out.strip()!r}")
+            if "history.json" not in files or rc != 0 or \
+                    "worker.dead_letters_total" not in out:
+                raise AssertionError("[planes]: the dump's history did not render")
+        finally:
+            slo.STANDARD_OBJECTIVES = standard
+            stop.set()
+            w.close()
+    same_rows = got[True][0] == got[False][0]
+    same_served = got[True][1] == got[False][1]
+    log(f"[planes] sequential over {n} ids, planes on / off: {got[True][2]:.3f} / "
+        f"{got[False][2]:.3f} s ({100 * (got[True][2] / got[False][2] - 1):+.1f}% with "
+        f"the planes and a client thread on the serve plane and obsd every "
+        f"{PLANES_CLIENT_S} s); SLO block {got[True][3]['slo']}; written rows "
+        f"({sum(len(t) for t in got[True][0])}) bit-identical: {same_rows}; "
+        f"{len(got[True][1])} rounds of served responses equal: {same_served}")
+    if not (same_rows and same_served and got[True][1]):
+        raise AssertionError("[planes]: the planes changed the worker's rows or answers")
+
+
 def bench_phase(n_matches: int) -> dict:
     """Phase [bench]: ``cli bench --kernel fused --hot-rows 32768 --profile``
     in a subprocess at bench's default workload (``n_matches`` matches,
@@ -1574,8 +1818,12 @@ def bench_phase(n_matches: int) -> dict:
                              "not from the profile")
     if "fused_window" not in (profile.get("dominant_kernel") or ""):
         raise AssertionError(f"[bench]: dominant kernel {profile.get('dominant_kernel')}")
+    for block in ("watchdog_overhead", "federate_overhead"):
+        log(f"[bench] {block}: {json.dumps(line[block])}")
     for block, key in (("fused", "min_over_reference"), ("streamed", "min_over_device"),
-                       ("trace_overhead", "overhead_pct")):
+                       ("trace_overhead", "overhead_pct"),
+                       ("watchdog_overhead", "overhead_pct"),
+                       ("federate_overhead", "overhead_pct")):
         if line[block].get(key) is None:
             raise AssertionError(f"[bench]: {block}.{key} missing")
     if counts["fused_window_launches"] == 0:
@@ -1717,6 +1965,70 @@ def cli_sub(*argv) -> subprocess.CompletedProcess:
         capture_output=True, text=True, timeout=300,
         cwd=os.path.dirname(os.path.abspath(__file__)),
     )
+
+
+def cli_obs_port_phase(cli, pre_path: str, ck: str, want: np.ndarray) -> None:
+    """``cli rate --obs-port 0 --kernel fused --checkpoint`` on the prefix
+    while a thread scrapes obsd's ``/metrics`` every ``SCRAPE_S`` seconds,
+    with one last scrape when the run closes obsd: the checkpoint's table
+    must equal [prefix]'s bit for bit (rows past the file's players are
+    unrated there), and the last scrape's ``fused.windows_total`` must
+    equal the run's ``fused_window`` launches."""
+    import re
+
+    from analyzer_tpu_torch.io.checkpoint import load_checkpoint
+    from analyzer_tpu_torch.kernels import fused_window as fw
+    from analyzer_tpu_torch.obs import reset_registry
+    from analyzer_tpu_torch.obs import server as obs_server
+
+    started, bodies = [], []
+    final, done = threading.Event(), threading.Event()
+
+    class Scraped(obs_server.ObsServer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            started.append(self)
+            threading.Thread(target=self.scrape, daemon=True).start()
+
+        def scrape(self):
+            while True:
+                last = final.is_set()
+                code, body = http_status(self.url + "/metrics")
+                if code == 200:
+                    bodies.append(body.decode())
+                if last:
+                    done.set()
+                    return
+                final.wait(SCRAPE_S)
+
+        def close(self):
+            final.set()
+            done.wait(30)
+            super().close()
+
+    reset_registry()
+    fw.launches = 0
+    orig = obs_server.ObsServer
+    obs_server.ObsServer = Scraped
+    try:
+        run_cli(cli, "rate", "--csv", pre_path, "--kernel", "fused",
+                "--checkpoint", ck, "--obs-port", "0")
+    finally:
+        obs_server.ObsServer = orig
+    launches = fw.launches
+    windows = [re.search(r"^fused_windows_total (\S+)$", b, re.M) for b in bodies]
+    last = float(windows[-1].group(1)) if bodies and windows[-1] else None
+    table = load_checkpoint(ck, device="cpu").state.table.numpy()
+    p = table.shape[0] - 1
+    same = (np.array_equal(table[:p], want[:p], equal_nan=True)
+            and np.array_equal(table[p], want[-1], equal_nan=True)
+            and bool(np.isnan(want[p:-1, 0]).all()))
+    log(f"[cli] rate --obs-port 0 --kernel fused --checkpoint: {len(started)} obsd, "
+        f"{len(bodies)} /metrics scrapes at {1 / SCRAPE_S:.0f} Hz; last scrape's "
+        f"fused.windows_total {last}, fused_window launches {launches}; checkpoint "
+        f"table ({p} players) bit-identical to [prefix]'s: {same}")
+    if len(started) != 1 or launches == 0 or last != launches or not same:
+        raise AssertionError("[cli] rate --obs-port differs from [prefix] or its scrape")
 
 
 def cli_obs_phase(m_json: str, t_jsonl: str, capture: str, launches: int) -> None:
@@ -2340,6 +2652,7 @@ def main(argv=None) -> int:
             f"{got['phases']['rate']:.3f} s (capture export included) against "
             f"[stream]'s unprofiled rate_stream {t_stream:.3f} s over the same "
             f"matches: {100 * (got['phases']['rate'] / t_stream - 1):+.1f}%")
+        cli_obs_port_phase(cli, pre_path, os.path.join(tmp, "obs.npz"), a_pre)
 
         pre_steps = pack_schedule(
             pre, pad_row=int(pre.player_idx.max()) + 1, windowed=True
@@ -2390,6 +2703,10 @@ def main(argv=None) -> int:
     try:
         db_counts = db_phase(cli, tmp, dev, args.db_matches)
         worker_counts = worker_phase(cli, tmp, dev, args.worker_matches)
+        # -- 13a. the live obs planes, on [worker]'s fixture ---------------
+        t0 = time.perf_counter()
+        planes_phase(cli, dev, *worker_counts["planes"], os.path.join(tmp, "flight"))
+        log(f"[planes] phase wall {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

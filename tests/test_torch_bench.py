@@ -7,8 +7,9 @@ against the JAX package's root ``bench.py``.
     takes the JAX line's TPU thresholds as arguments (the port raises
     neither reason by default, until ROADMAP A17 fits card thresholds).
   * ``cli bench --device cpu`` at 2,000 matches prints a line whose key
-    structure equals the JAX bench's on the same workload, less the A16b
-    blocks and plus ``device``, with both bit-identities true; its
+    structure equals the JAX bench's on the same workload — the
+    ``watchdog_overhead`` and ``federate_overhead`` blocks included, on by
+    default in both — plus ``device``, with both bit-identities true; its
     reference table matches JAX's ``rate_history`` on the same stream with
     tests/test_torch_stream.py's table tolerance (rtol 2e-6, atol 2e-3:
     float32 transcendentals and sum order, tests/test_torch_ops.py).
@@ -134,13 +135,16 @@ def _blocks():
         fused={"window": 16, "min_over_reference": 0.5},
         tiered={"hot_rows": 64, "min_over_resident": 1.9},
         trace_overhead={"overhead_pct": 0.4},
+        watchdog_overhead={"overhead_pct": 0.7, "samples": 3},
+        federate_overhead={"overhead_pct": 0.2, "scrapes": 9},
         roofline={"bound_by": "overhead"},
         profile={"parsed": True, "dominant_kernel": "k"},
         telemetry={"phases": {"pack_s": 0.1}},
     )
 
 
-@pytest.mark.parametrize("drop", [None, "fused", "tiered", "profile", "capture"])
+@pytest.mark.parametrize("drop", [None, "fused", "tiered", "profile", "capture",
+                                  "watchdog_overhead"])
 def test_emit_metric_equals_jax(drop, capsys):
     blocks = _blocks()
     if drop is not None:
@@ -212,8 +216,7 @@ def captures():
         finally:
             bench.main = orig
     jout = io.StringIO()
-    with _env(**knobs, BENCH_HOT_ROWS=HOT_ROWS, BENCH_WATCHDOG_OVERHEAD=0,
-              BENCH_FEDERATE_OVERHEAD=0), contextlib.redirect_stdout(jout), \
+    with _env(**knobs, BENCH_HOT_ROWS=HOT_ROWS), contextlib.redirect_stdout(jout), \
             contextlib.redirect_stderr(io.StringIO()):
         jbench.main()
     return {
@@ -245,9 +248,18 @@ def test_bit_identities_hold(captures):
 
 
 def test_a16b_blocks_left_out_with_one_stderr_line(captures):
-    assert "watchdog_overhead" not in captures["line"]
-    assert "federate_overhead" not in captures["line"]
-    assert captures["stderr"].count("ROADMAP A16b") == 1
+    """The SLO-plane and federation blocks are ported and on by default:
+    present with JAX's keys and counts that show the planes ran."""
+    line, jax = captures["line"], captures["jax"]
+    for block in ("watchdog_overhead", "federate_overhead"):
+        assert set(line[block]) == set(jax[block]), block
+        assert line[block]["off_s"] > 0 and line[block]["on_s"] > 0
+    assert line["watchdog_overhead"]["samples"] > 0
+    assert line["watchdog_overhead"]["checks"] == line["watchdog_overhead"]["samples"]
+    assert line["federate_overhead"]["scrapes"] > 0
+    assert "ROADMAP A16b" not in captures["stderr"]
+    assert "SLO-plane-on rate_history" in captures["stderr"]
+    assert "scraped-under-load rate_history" in captures["stderr"]
 
 
 def test_capture_never_raises_the_tpu_reasons(captures):
@@ -306,16 +318,19 @@ def test_ingest_line_on_cpu_keys_equal_jax():
 
 
 @pytest.mark.parametrize("argv,env,item", [
-    (["--obs-port", "0"], {}, "ROADMAP A16b"),
-    ([], {"BENCH_OBS_PORT": "9100"}, "ROADMAP A16b"),
+    (["--obs-port", "0", "--migrate"], {}, "ROADMAP A13"),
+    ([], {"BENCH_OBS_PORT": "9100", "BENCH_MESH": "2"}, "ROADMAP A14"),
     (["--migrate"], {}, "ROADMAP A13"),
     ([], {"BENCH_MIGRATE": "1"}, "ROADMAP A13"),
     ([], {"BENCH_MESH": "1"}, "ROADMAP A14"),
     ([], {"BENCH_MESH": "4"}, "ROADMAP A14"),
-    ([], {"BENCH_WATCHDOG_OVERHEAD": "1"}, "ROADMAP A16b"),
-    ([], {"BENCH_FEDERATE_OVERHEAD": "yes"}, "ROADMAP A16b"),
+    ([], {"BENCH_WATCHDOG_OVERHEAD": "1", "BENCH_MIGRATE": "1"}, "ROADMAP A13"),
+    ([], {"BENCH_FEDERATE_OVERHEAD": "yes", "BENCH_MESH": "1"}, "ROADMAP A14"),
 ])
 def test_refusals_exit_2_naming_the_item(argv, env, item, capsys):
+    """The refused items exit 2 before anything runs; ``--obs-port`` /
+    ``BENCH_OBS_PORT`` and the overhead knobs are ported and never the
+    reason."""
     with _env(**env):
         rc = cli.main(["bench", "--device", "cpu", *argv])
         leaked = {k for k in os.environ if k.startswith("BENCH_")} - set(env)
@@ -325,10 +340,12 @@ def test_refusals_exit_2_naming_the_item(argv, env, item, capsys):
 
 
 def test_a16b_knobs_at_zero_are_accepted():
-    assert bench.refusal(env={"BENCH_WATCHDOG_OVERHEAD": "0",
-                              "BENCH_FEDERATE_OVERHEAD": "0",
-                              "BENCH_MESH": "0"}) is None
-    with pytest.raises(NotImplementedError, match="A16b"):
+    for value in ("0", "1"):
+        assert bench.refusal(env={"BENCH_WATCHDOG_OVERHEAD": value,
+                                  "BENCH_FEDERATE_OVERHEAD": value,
+                                  "BENCH_OBS_PORT": "0",
+                                  "BENCH_MESH": "0"}) is None
+    with _env(BENCH_MIGRATE=1), pytest.raises(NotImplementedError, match="A13"):
         bench.main(obs_port=0, device="cpu")
 
 

@@ -13,7 +13,9 @@ after the copy's event, ``stage_ingest_window``), the cold tier on it, and
 a tiny ``cli bench`` on the card; the model zoo on the card against the
 port's CPU run (the features pass, its CUDA graph against eager dispatch
 bit for bit, Elo, both heads' training, the Worker with and without the
-calibration ledger). Every test
+calibration ledger); the shadow audit of a Worker serving from the card
+(0 mismatches against the oracle, rows equal to a Worker with every plane
+off). Every test
 needs a CUDA device (marker
 ``cuda``) and skips with a reason without one. On the card, where JAX is
 not installed, run them without the suite's conftest:
@@ -715,3 +717,49 @@ def test_worker_ledger_on_card_is_an_observer(cuda, tmp_path):
         conn.close()
     assert dumps[0] == dumps[1]
     assert stats[0]["quality"]["matches_scored"] > 0 and stats[1]["quality"] is None
+
+
+def test_audited_worker_on_card_has_zero_mismatches(cuda, tmp_path):
+    """The shadow audit on the card: a Worker with the SLO plane and an
+    audit of every served query replays each response through the float32
+    oracle on the view's host table — every number the card served equals
+    it bit for bit — and commits the rows of a Worker with every plane
+    off."""
+    import sqlite3
+
+    from analyzer_tpu_torch.config import ServiceConfig
+    from analyzer_tpu_torch.experiments.service_bench import build_db, match_ids
+    from analyzer_tpu_torch.service import InMemoryBroker, SqlStore, Worker
+
+    dumps, audits = [], []
+    for on in (True, False):
+        path = str(tmp_path / f"a{on}.db")
+        build_db(path, 1500, 500, 3, items=True)
+        broker = InMemoryBroker()
+        cfg = ServiceConfig(batch_size=250, idle_timeout=0)
+        planes = (dict(obs_port=0, audit=True, audit_sample_denom=1,
+                       history_interval_s=0.0) if on
+                  else dict(slo_plane=False, quality=False))
+        w = Worker(broker, SqlStore(f"sqlite:///{path}"), cfg, pipeline=False,
+                   serve_port=0, **planes)
+        try:
+            for mid in match_ids(path):
+                broker.publish(cfg.queue, mid.encode())
+            while w.poll():
+                lb = w.query_engine.leaderboard(50)
+                ids = [e["id"] for e in lb["leaders"]]
+                w.query_engine.get_ratings(ids[:20])
+                w.query_engine.win_probability(ids[:5], ids[5:10])
+                w.query_engine.tier_histogram()
+                w.query_engine.percentile(100.0)
+            w.drain()
+            audits.append(w.auditor.stats() if w.auditor is not None else None)
+        finally:
+            w.close()
+        conn = sqlite3.connect(path)
+        dumps.append([conn.execute(f'SELECT * FROM "{t}" ORDER BY rowid').fetchall()
+                      for t in ("player", "participant", "participant_items", "match")])
+        conn.close()
+    assert dumps[0] == dumps[1]
+    assert audits[0]["checked"] == audits[0]["sampled"] > 0
+    assert audits[0]["mismatches"] == 0 and audits[1] is None

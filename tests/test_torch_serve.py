@@ -439,8 +439,11 @@ class TestViews:
             ViewPublisher()
         with pytest.raises(RuntimeError, match="CUDA"):
             QueryEngine(ViewPublisher(device="cpu"))
-        with pytest.raises(NotImplementedError, match="A16"):
-            QueryEngine(ViewPublisher(device="cpu"), device="cpu", auditor=object())
+        # The shadow audit hook is ported: auditor= is kept, not refused.
+        marker = object()
+        engine = QueryEngine(ViewPublisher(device="cpu"), device="cpu",
+                             auditor=marker)
+        assert engine.auditor is marker
 
 
 class TestCoalescing:

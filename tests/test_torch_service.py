@@ -9,9 +9,9 @@ telesuck and topic publishes, in order), dead-lettered ids, every id,
 integer, text and NULL written back, the stats key set, the encoders'
 streams, row maps and player tables. Float posteriors are within the
 tolerance of ``tests/test_torch_stream.py`` (rtol 2e-6, atol 2e-3; see
-``tests/test_torch_sql_store.py`` for why). The JAX Worker runs with
-``slo_plane=False`` (an observer the port does not have yet, ROADMAP
-A16b) and, as the port's, with the rating-quality ledger on
+``tests/test_torch_sql_store.py`` for why). Both Workers run with
+``slo_plane=False`` (an observer; ``tests/test_torch_slo_plane.py`` holds
+the two planes against each other) and with the rating-quality ledger on
 (``tests/test_torch_quality.py`` holds the two ledgers' counters). The device profiler
 (``profile_dir``) is ported: ``TestDeviceProfilerWorker`` holds its
 requests and capture windows to the JAX worker's.
@@ -91,7 +91,7 @@ def make_worker(side, broker, store, cfg_kw, **kw):
     """A Worker of either package over ``broker``/``store``."""
     if side == PORT:
         return Worker(broker, store, ServiceConfig(**cfg_kw), RatingConfig(),
-                      device="cpu", **kw)
+                      device="cpu", slo_plane=False, **kw)
     return JaxWorker(broker, store, JaxServiceConfig(**cfg_kw),
                      JaxRatingConfig(), slo_plane=False, quality=True, **kw)
 
@@ -459,16 +459,34 @@ class TestNoCompiles:
 
 class TestRefusals:
     @pytest.mark.parametrize("kw,item", [
-        (dict(obs_port=0), "A16"),
-        (dict(flight_dir="x"), "A16"),
-        (dict(audit=True), "A16"),
-        (dict(slo_plane=True), "A16"),
+        (dict(obs_port=0), "obs_server"),
+        (dict(flight_dir=True), "flight"),
+        (dict(audit=True, serve_port=0), "auditor"),
+        (dict(slo_plane=True), "watchdog"),
         (dict(serve_shards=2), "A11b"),
     ])
-    def test_unported_planes_raise(self, kw, item):
-        with pytest.raises(NotImplementedError, match=item):
-            Worker(InMemoryBroker(), InMemoryStore(), ServiceConfig(),
-                   device="cpu", **kw)
+    def test_unported_planes_raise(self, kw, item, tmp_path):
+        """Only the sharded serve plane (ROADMAP A11b) is still refused;
+        each live plane builds its object and closes with the worker."""
+        from analyzer_tpu_torch.obs import reset_flight_recorder
+
+        if item == "A11b":
+            with pytest.raises(NotImplementedError, match=item):
+                Worker(InMemoryBroker(), InMemoryStore(), ServiceConfig(),
+                       device="cpu", **kw)
+            return
+        if kw.get("flight_dir"):
+            kw = dict(flight_dir=str(tmp_path))
+        try:
+            w = Worker(InMemoryBroker(), InMemoryStore(), ServiceConfig(),
+                       device="cpu", **kw)
+            try:
+                assert getattr(w, item) is not None
+            finally:
+                w.close()
+            assert w.obs_server is None and w.serve_server is None
+        finally:
+            reset_flight_recorder()
 
     def test_no_card_raises(self):
         if torch.cuda.is_available():
@@ -483,12 +501,21 @@ class TestRefusals:
             ColumnarBatch(synthetic_raw_batch(2), RatingConfig())
 
     @pytest.mark.parametrize("argv,item", [
-        (("--obs-port", "0"), "A16"),
-        (("--flight-dir", "x"), "A16"),
-        (("--audit",), "A16"),
+        (("--obs-port", "0"), None),
+        (("--flight-dir", "x"), None),
+        (("--audit",), None),
         (("--serve-shards", "2"), "A11b"),
     ])
-    def test_worker_flags_exit_2(self, capsys, argv, item):
+    def test_worker_flags_exit_2(self, capsys, monkeypatch, argv, item):
+        """``--serve-shards 2`` exits 2 naming ROADMAP A11b; the live
+        planes' flags are ported: they reach the consume loop, which then
+        needs pika like any other worker run."""
+        if item is None:
+            monkeypatch.delenv("DATABASE_URI", raising=False)
+            monkeypatch.setitem(sys.modules, "pika", None)
+            with pytest.raises(ImportError):
+                cli.main(["worker", *argv, "--device", "cpu"])
+            return
         assert cli.main(["worker", *argv, "--device", "cpu"]) == 2
         err = capsys.readouterr().err
         assert item in err and err.startswith("error:")
@@ -909,3 +936,16 @@ class TestServiceBench:
         got = json.loads(proc.stdout.strip().splitlines()[-1])
         assert got["matches"] == 600 and got["dead_letters"] == 0
         assert got["device"] == "cpu" and got["lag"] >= 2
+        assert got["slo_plane"] is True
+
+    def test_sqlite_bench_without_the_slo_plane(self, tmp_path):
+        proc = subprocess.run(
+            [sys.executable, "-m", "analyzer_tpu_torch.experiments.service_bench",
+             "--store", "sqlite", "--matches", "600", "--device", "cpu",
+             "--no-pipeline", "--no-slo-plane", "--fixture-dir", str(tmp_path)],
+            capture_output=True, text=True, timeout=300, cwd=_REPO,
+        )
+        assert proc.returncode == 0, proc.stderr
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert got["matches"] == 600 and got["dead_letters"] == 0
+        assert got["slo_plane"] is False and got["pipeline"] is False
