@@ -65,10 +65,13 @@ flags routed into the same env knobs.
 
 ``rate``, ``serve``, ``worker``, ``bench``, ``elo`` and ``train`` run on the
 card (``--device cuda``, the default) and refuse to start where there is
-none; ``--device cpu`` runs them on the CPU. Not ported yet, each exiting 2
-with its ROADMAP item: ``rate --mesh``, ``train --mesh`` and ``BENCH_MESH``
-(A14), ``bench --migrate`` (A13), ``serve --shards N>1`` and ``worker
---serve-shards N>1`` (A11b).
+none; ``--device cpu`` runs them on the CPU. ``rate --mesh N`` and ``train
+--mesh N`` run data-parallel over an N-shard mesh (``parallel/``; with the
+``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID`` env, ``--mesh
+0`` runs one shard per process of a ``torch.distributed`` group, NCCL on
+the card and gloo on the CPU); ``serve --shards N`` and ``worker
+--serve-shards N`` serve through the sharded plane. Not ported yet:
+``bench --migrate`` (ROADMAP A13, exits 2).
 """
 
 from __future__ import annotations
@@ -84,9 +87,8 @@ import numpy as np
 
 from analyzer_tpu_torch.utils.profiling import PhaseTimer, trace
 
-#: ROADMAP items the refused flags wait for.
+#: The ROADMAP item the refused flags wait for.
 A13 = "ROADMAP A13, migration"
-A14 = "ROADMAP A14, parallel"
 
 
 def _load_stream(path: str):
@@ -282,7 +284,8 @@ def cmd_train(args) -> int:
     evaluation split is CHRONOLOGICAL: train on the first (1 - eval_frac)
     of ratable matches, evaluate on the tail, as a deployed predictor sees
     time. Exact-tie predictions score half credit, as in cmd_elo.
-    ``--mesh`` (data-parallel training) waits for ROADMAP A14."""
+    ``--mesh N`` trains data-parallel over an N-shard mesh (0 = one shard
+    per process)."""
     import torch
 
     from analyzer_tpu_torch.config import RatingConfig
@@ -301,10 +304,6 @@ def cmd_train(args) -> int:
             "error: --telemetry needs an .npz stream (databases carry no "
             "telemetry block); use --csv", file=sys.stderr,
         )
-        return 2
-    if args.mesh is not None:
-        print(f"error: train --mesh is not ported yet ({A14}); drop --mesh "
-              "to train on one card", file=sys.stderr)
         return 2
     device = _resolve_device(args, "train")
     if device is None:
@@ -361,6 +360,11 @@ def cmd_train(args) -> int:
     if rows.size < 10:
         print("error: too few ratable matches to train on", file=sys.stderr)
         return 2
+    mesh = None
+    if args.mesh is not None:
+        from analyzer_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(args.mesh or None, device=device)
     cut = max(1, int(rows.size * (1.0 - args.eval_frac)))
     tr, ev = rows[:cut], rows[cut:]
     # Reserve the chronological tail of the train split for temperature
@@ -375,12 +379,13 @@ def cmd_train(args) -> int:
         if args.model == "logistic":
             model, nll = train_logistic(
                 feats[fit], y[fit], epochs=args.epochs, seed=args.seed,
-                device=device,
+                mesh=mesh, device=device,
             )
         else:
             model, nll = train_mlp(
                 feats[fit], y[fit], hidden=args.hidden,
-                epochs=args.epochs, seed=args.seed, device=device,
+                epochs=args.epochs, seed=args.seed, mesh=mesh,
+                device=device,
             )
 
     def logits(rows_):
@@ -538,13 +543,20 @@ def cmd_quality(args) -> int:
     return 0
 
 
-def _checkpoint_hook(args, sched, cursor, start_step, finished):
-    """The periodic / bounded-run snapshot hook of the packed path. Returns
-    ``(on_chunk, close)``: ``on_chunk`` is None when no save can be due;
-    ``close`` drains the asynchronous writer (call it in a ``finally``).
-    Periodic saves follow ``--checkpoint-every``; a bounded run always
-    snapshots at its stop boundary; a finished run's final save is written
-    by the caller, never here."""
+def _checkpoint_hook(args, sched, cursor, start_step, finished, lead=True):
+    """The periodic / bounded-run snapshot hook of the packed paths
+    (single-device and ``--mesh``). Returns ``(on_chunk, close)``:
+    ``on_chunk`` is None when no save can be due; ``close`` drains the
+    asynchronous writer (call it in a ``finally``). Periodic saves follow
+    ``--checkpoint-every``; a bounded run always snapshots at its stop
+    boundary; a finished run's final save is written by the caller, never
+    here.
+
+    Multi-process discipline (the mesh path): the hook runs on EVERY
+    process and gets the state as a thunk whose evaluation is a collective
+    (the final gather); the cadence decision is a pure function of
+    ``next_step``, so every process makes the same call. Only the lead
+    process has a writer."""
     from analyzer_tpu_torch.io.checkpoint import CheckpointWriter
 
     if not args.checkpoint or (not args.checkpoint_every and finished):
@@ -555,7 +567,7 @@ def _checkpoint_hook(args, sched, cursor, start_step, finished):
         sched.n_steps if finished else min(args.stop_after_steps, sched.n_steps)
     )
     last_saved = start_step
-    writer = CheckpointWriter(args.checkpoint)
+    writer = CheckpointWriter(args.checkpoint) if lead else None
 
     def on_chunk(st, next_step):
         nonlocal last_saved
@@ -566,12 +578,15 @@ def _checkpoint_hook(args, sched, cursor, start_step, finished):
         ):
             return
         last_saved = next_step
-        writer.save(
-            st, cursor=cursor, step_cursor=next_step,
-            schedule_fingerprint=fingerprint,
-        )
+        if callable(st):  # mesh path: a collective snapshot, all processes
+            st = st()
+        if writer is not None:
+            writer.save(
+                st, cursor=cursor, step_cursor=next_step,
+                schedule_fingerprint=fingerprint,
+            )
 
-    return on_chunk, writer.close
+    return on_chunk, (writer.close if writer is not None else lambda: None)
 
 
 def _rate_stats(stream, cursor, n_players, state, sched, timer, **extra) -> str:
@@ -591,23 +606,26 @@ def _rate_stats(stream, cursor, n_players, state, sched, timer, **extra) -> str:
 
 
 def _rate_streamed(args, cfg, timer, state, stream, cursor, n_players,
-                   finalize=None) -> int:
-    """The fully streamed path (``rate_stream``); its stats come from the
-    runner's ``stats_out``, since the schedule never exists as one
-    object. ``finalize(state) -> dict`` runs after the rate (the DB
-    write-back) and its stats merge into the output line."""
+                   mesh=None, finalize=None, **extra) -> int:
+    """The fully streamed path (``rate_stream``) of ``rate`` and ``rate
+    --mesh``; its stats come from the runner's ``stats_out``, since the
+    schedule never exists as one object. ``finalize(state) -> dict`` runs
+    after the rate (the DB write-back) and its stats merge into the output
+    line, as do ``extra``'s."""
     from analyzer_tpu_torch.sched import rate_stream
 
     stats: dict = {}
     with timer.phase("rate"), trace(args.trace):
         state, _ = rate_stream(
             state, stream.slice(cursor, stream.n_matches), cfg,
-            stats_out=stats, prefetch_depth=args.prefetch_depth,
-            kernel=args.kernel, fuse_window=args.fuse_window,
-            hot_rows=args.hot_rows,
+            stats_out=stats, mesh=mesh, prefetch_depth=args.prefetch_depth,
+            kernel=args.kernel if mesh is None else "reference",
+            fuse_window=args.fuse_window,
+            hot_rows=args.hot_rows if mesh is None else 0,
         )
         _sync(state)
-    extra = finalize(state) if finalize is not None else {}
+    if finalize is not None:
+        extra.update(finalize(state))
     sched_view = types.SimpleNamespace(
         n_steps=stats["n_steps"], occupancy=stats["occupancy"]
     )
@@ -664,9 +682,6 @@ def _validate_rate(args) -> bool:
             "--db-write requires a finished run (drop --stop-after-steps, "
             "or resume to completion and write then)"
         )
-    if args.mesh is not None:
-        return fail(f"rate --mesh is not ported yet ({A14}); drop --mesh "
-                    "to rate on one card")
     return True
 
 
@@ -741,6 +756,8 @@ def _cmd_rate_impl(args) -> int:
     if device is None:
         return 2
     timer = PhaseTimer()
+    if args.mesh is not None:
+        return _rate_mesh(args, cfg, timer, device)
     stream, n_players, db_state, db_store, player_ids = _load_inputs(
         args, cfg, timer, device
     )
@@ -816,6 +833,135 @@ def _cmd_rate_impl(args) -> int:
     return 0
 
 
+def _rate_mesh(args, cfg, timer, device) -> int:
+    """The ``--mesh`` re-rate: data-parallel over an N-shard mesh
+    (``parallel/``).
+
+    One process: ``--mesh N`` runs N logical shards on ``device``.
+    Several: set COORDINATOR_ADDRESS (``host:port``), NUM_PROCESSES and
+    PROCESS_ID and run the same command in every process with ``--mesh 0``
+    (one shard per process) or a multiple of the process count; the
+    processes join one ``torch.distributed`` group (NCCL on the card, gloo
+    on the CPU), each feeds its own shards of the identical deterministic
+    schedule, and process 0 writes the checkpoint and the stats."""
+    import math
+
+    import torch.distributed as dist
+
+    from analyzer_tpu_torch.core.state import PlayerState
+    from analyzer_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+    from analyzer_tpu_torch.parallel import (
+        assert_processes_agree,
+        initialize_distributed,
+        make_mesh,
+        rate_history_sharded,
+    )
+    from analyzer_tpu_torch.parallel.multihost import process_count, process_index
+    from analyzer_tpu_torch.sched import choose_batch_size, pack_schedule
+
+    joined = not dist.is_initialized()
+    distributed = initialize_distributed(device=device)
+    joined = joined and distributed
+    if distributed:
+        print(f"rate --mesh: joined a {dist.get_backend()} process group, "
+              f"rank {process_index()} of {process_count()}", file=sys.stderr)
+    try:
+        lead = process_index() == 0
+        stream, n_players, db_state, db_store, player_ids = _load_inputs(
+            args, cfg, timer, device
+        )
+        cursor, start_step = 0, 0
+        ck = None
+        if args.resume:
+            with timer.phase("restore"):
+                ck = load_checkpoint(args.checkpoint, device=device)
+            state, cursor, start_step = ck.state, ck.cursor, ck.step_cursor
+        elif db_state is not None:
+            state = db_state
+        else:
+            state = PlayerState.create(n_players, cfg=cfg, device=device)
+        # Every process must hold identical inputs before any is fed into
+        # the sharded table — a stale checkpoint copy or divergent stream
+        # file on one host would be silently wrong, not crash.
+        assert_processes_agree(
+            "rate --mesh inputs", state.table, stream.player_idx,
+            stream.winner, stream.mode_id, stream.afk, np.int64(cursor),
+            np.int64(start_step),
+        )
+        mesh = make_mesh(args.mesh or None, device=device)
+        n_dev = mesh.n_shards
+        if (
+            not args.checkpoint
+            and args.stop_after_steps is None
+            and not distributed
+        ):
+            # No snapshots to coordinate: the fully streamed sharded path.
+            # Multi-process runs keep the windowed schedule below: the
+            # deterministic schedule keeps the processes in lockstep.
+            return _rate_streamed(
+                args, cfg, timer, state, stream, cursor, n_players,
+                mesh=mesh, mesh_devices=n_dev, processes=1,
+                finalize=lambda st: _maybe_db_write(
+                    args, timer, db_store, st, player_ids
+                ),
+            )
+        with timer.phase("pack"):
+            work = stream.slice(cursor, stream.n_matches)
+            # The sharded batch axis needs B % D == 0 and lane alignment
+            # wants B % 8 == 0: round up to the lcm.
+            m = math.lcm(8, n_dev)
+            b = choose_batch_size(work, batch_multiple=m)
+            b = -(-b // m) * m
+            sched = pack_schedule(
+                work, pad_row=state.pad_row, batch_size=b, windowed=True
+            )
+        if start_step and sched.fingerprint != ck.schedule_fingerprint:
+            print(
+                "error: checkpoint was taken mid-schedule but the packed "
+                "schedule no longer matches (stream file, packing policy, or "
+                "mesh size changed); re-rate from scratch or from a "
+                "finished-run checkpoint",
+                file=sys.stderr,
+            )
+            return 2
+        finished = (args.stop_after_steps is None
+                    or args.stop_after_steps >= sched.n_steps)
+        on_chunk, ck_close = _checkpoint_hook(
+            args, sched, cursor, start_step, finished, lead
+        )
+        try:
+            with timer.phase("rate"), trace(args.trace):
+                state = rate_history_sharded(
+                    state, sched, cfg, mesh=mesh,
+                    start_step=start_step, stop_after=args.stop_after_steps,
+                    on_chunk=on_chunk,
+                    steps_per_chunk=(
+                        min(1024, args.checkpoint_every)
+                        if args.checkpoint_every else 1024
+                    ),
+                    prefetch_depth=args.prefetch_depth,
+                )
+                _sync(state)
+        finally:
+            ck_close()  # drains the asynchronous snapshot writes
+        if args.checkpoint and lead and finished:
+            with timer.phase("checkpoint"):
+                save_checkpoint(args.checkpoint, state, cursor=stream.n_matches)
+        extra = (
+            _maybe_db_write(args, timer, db_store, state, player_ids)
+            if finished and lead else {}
+        )
+        if lead:
+            print(_rate_stats(
+                stream, cursor, n_players, state, sched, timer,
+                mesh_devices=n_dev, processes=process_count(), **extra,
+            ))
+        return 0
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
 def cmd_serve(args) -> int:
     """ratesrv standalone: publish a rating table (checkpoint or DB) as
     version 1 and serve queries against it from the device; with
@@ -829,10 +975,6 @@ def cmd_serve(args) -> int:
         return 2
     if args.shards < 1:
         print("error: --shards must be >= 1", file=sys.stderr)
-        return 2
-    if args.shards > 1:
-        print("error: serve --shards > 1 is not ported yet (ROADMAP A11b, "
-              "the sharded plane); use --shards 1", file=sys.stderr)
         return 2
     device = _resolve_device(args, "serve")
     if device is None:
@@ -849,11 +991,23 @@ def _serve(args, device) -> int:
     """cmd_serve's body: publish, warm, serve until the deadline."""
     from analyzer_tpu_torch.config import RatingConfig
     from analyzer_tpu_torch.io.checkpoint import load_checkpoint
-    from analyzer_tpu_torch.serve import QueryEngine, ViewPublisher
+    from analyzer_tpu_torch.serve import (
+        QueryEngine,
+        ShardedQueryEngine,
+        ShardedViewPublisher,
+        ViewPublisher,
+    )
     from analyzer_tpu_torch.serve.server import ServeServer
 
     cfg = RatingConfig.from_env()
-    publisher = ViewPublisher(device=device)
+    # Topology-blind bootstrap (ServePlane): publish_state splits the table
+    # by interleaved row ownership when sharded; everything below — warmup,
+    # /v1/* — is the same code either way.
+    sharded = args.shards > 1
+    publisher = (
+        ShardedViewPublisher(args.shards, device=device) if sharded
+        else ViewPublisher(device=device)
+    )
     if args.checkpoint:
         ck = load_checkpoint(args.checkpoint, device=device)
         # Checkpoints carry no id column: rows serve by index.
@@ -865,9 +1019,15 @@ def _serve(args, device) -> int:
         hist = store.load_stream(cfg, device=device)
         view = publisher.publish_state(hist.state, ids=hist.player_ids)
         store.close()
-    engine = QueryEngine(
-        publisher, cfg=cfg, max_batch=args.max_batch, device=device
-    )
+    if sharded:
+        engine = ShardedQueryEngine(
+            publisher, cfg=cfg, max_batch=args.max_batch,
+            all_gather_topk=args.all_gather_topk, device=device,
+        )
+    else:
+        engine = QueryEngine(
+            publisher, cfg=cfg, max_batch=args.max_batch, device=device
+        )
     engine.warmup(view)  # no first-query stall
     engine.start()
     server = ServeServer(engine, port=args.port)
@@ -1137,12 +1297,6 @@ def cmd_worker(args) -> int:
     """The broker-consuming service loop (``service.worker.main``), or with
     ``--requeue-failed`` the dead-letter redrive. Both need pika and a
     RabbitMQ."""
-    from analyzer_tpu_torch.service.worker import A11B
-
-    if args.serve_shards is not None and args.serve_shards > 1:
-        print(f"error: worker --serve-shards > 1 is not ported yet ({A11B}); "
-              "use --serve-shards 1", file=sys.stderr)
-        return 2
     if args.requeue_failed:
         # Dead-letter redrive: move <QUEUE>_failed back onto the main
         # queue and exit — run after fixing whatever poisoned them.
@@ -1406,8 +1560,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     s.add_argument(
         "--mesh", type=int, metavar="N",
-        help="data-parallel re-rate over N devices (not ported yet: "
-        "ROADMAP A14)",
+        help="data-parallel re-rate over an N-shard mesh, or 0 for one "
+        "shard per process (under torch.distributed — set "
+        "COORDINATOR_ADDRESS/NUM_PROCESSES/PROCESS_ID and run in every "
+        "process)",
     )
     s.add_argument(
         "--obs-port", type=int, metavar="PORT",
@@ -1449,8 +1605,15 @@ def build_parser() -> argparse.ArgumentParser:
     )
     s.add_argument(
         "--shards", type=int, default=1, metavar="S",
-        help="serve through the sharded plane (not ported yet beyond 1: "
-        "ROADMAP A11b)",
+        help="serve through the sharded plane: the table splits into S "
+        "per-shard views (interleaved by row), lookups route by "
+        "player-id shard, leaderboards merge per-shard top-k — "
+        "bit-identical to --shards 1",
+    )
+    s.add_argument(
+        "--all-gather-topk", action="store_true",
+        help="with --shards > 1: one sort over the stacked per-shard "
+        "score columns per device instead of S per-shard sorts",
     )
     s.add_argument(
         "--obs-port", type=int, metavar="PORT",
@@ -1518,8 +1681,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     s.add_argument(
         "--serve-shards", type=int, metavar="S",
-        help="serve through the sharded plane (not ported yet beyond 1: "
-        "ROADMAP A11b)",
+        help="serve through the sharded plane: S per-shard views + "
+        "routed lookups + distributed top-k (also "
+        "ANALYZER_TPU_SERVE_SHARDS; bit-identical results)",
     )
     s.add_argument(
         "--profile-dir", metavar="DIR",
@@ -1734,8 +1898,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     s.add_argument(
         "--mesh", type=int, metavar="N",
-        help="data-parallel training over N devices (not ported yet: "
-        "ROADMAP A14; exits 2)",
+        help="data-parallel training: shard the minibatch axis over N "
+        "shards (0 = one per process)",
     )
     s.add_argument(
         "--device", default="cuda",

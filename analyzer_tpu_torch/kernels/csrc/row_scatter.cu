@@ -35,6 +35,12 @@
 //
 // row_scatter (one step) is the S = 1 case of the same kernel.
 //
+// Drop mode (drop != 0): an entry whose index lies outside [0, n_table)
+// writes nothing, as XLA's scatter with mode="drop" does; the sharded
+// re-rate pads each shard's compacted row list with such entries. The
+// branch skips the store only: every thread still reaches the grid barrier
+// between steps.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -shared -Xcompiler -fPIC. Plain C entry points for ctypes.
 
@@ -48,40 +54,44 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// Copy t of a step (0 <= t < n_vec): the float4 it reads and where it goes.
+// Copy t of a step (0 <= t < n_vec): the float4 it reads and where it goes;
+// dst is -1 where drop mode skips the entry (its index is out of range).
 __device__ __forceinline__ void copy_src(const int32_t* __restrict__ idx,
                                          const float4* __restrict__ rows,
                                          int64_t t, int vec_per_row,
+                                         int64_t n_table, int drop,
                                          float4& v, int64_t& dst) {
   const int64_t r = t / vec_per_row;
   const int64_t c = t - r * vec_per_row;
-  dst = static_cast<int64_t>(__ldg(idx + r)) * vec_per_row + c;
+  const int64_t row = static_cast<int64_t>(__ldg(idx + r));
+  dst = (drop && (row < 0 || row >= n_table)) ? -1 : row * vec_per_row + c;
   v = __ldg(rows + t);
 }
 
 __global__ void __launch_bounds__(kThreads)
 row_scatter_kernel(float4* __restrict__ table, const int32_t* __restrict__ idx,
                    const float4* __restrict__ rows, int n_steps, int64_t n_rows,
-                   int vec_per_row) {
+                   int vec_per_row, int64_t n_table, int drop) {
   const int64_t n_vec = n_rows * vec_per_row;  // float4 copies per step
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t t0 = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   float4 v;
-  int64_t dst = 0;
-  if (t0 < n_vec) copy_src(idx, rows, t0, vec_per_row, v, dst);
+  int64_t dst = -1;
+  if (t0 < n_vec) copy_src(idx, rows, t0, vec_per_row, n_table, drop, v, dst);
   for (int s = 0; s < n_steps; ++s) {
     const int32_t* step_idx = idx + static_cast<int64_t>(s) * n_rows;
     const float4* step_rows = rows + static_cast<int64_t>(s) * n_vec;
-    if (t0 < n_vec) table[dst] = v;
+    if (t0 < n_vec && dst >= 0) table[dst] = v;
     for (int64_t t = t0 + stride; t < n_vec; t += stride) {
       float4 u;
       int64_t d;
-      copy_src(step_idx, step_rows, t, vec_per_row, u, d);
-      table[d] = u;
+      copy_src(step_idx, step_rows, t, vec_per_row, n_table, drop, u, d);
+      if (d >= 0) table[d] = u;
     }
     if (s + 1 < n_steps) {
       if (t0 < n_vec) {
-        copy_src(step_idx + n_rows, step_rows + n_vec, t0, vec_per_row, v, dst);
+        copy_src(step_idx + n_rows, step_rows + n_vec, t0, vec_per_row, n_table,
+                 drop, v, dst);
       }
       cg::this_grid().sync();  // step s's writes land before step s+1's
     }
@@ -112,14 +122,15 @@ int row_scatter_max_blocks(int device, int* blocks) {
   return 0;
 }
 
-// Applies S steps in order: rows [S, n_rows, width] into table [*, width]
-// at the rows idx [S, n_rows], as one cooperative launch of `blocks` blocks
-// (at most row_scatter_max_blocks). width % 4 == 0 and table and rows
-// 16-byte aligned (the wrapper checks). Returns the cudaError_t of the
-// launch (0 = success).
+// Applies S steps in order: rows [S, n_rows, width] into table
+// [n_table, width] at the rows idx [S, n_rows], as one cooperative launch
+// of `blocks` blocks (at most row_scatter_max_blocks); with drop != 0 an
+// index outside [0, n_table) writes nothing. width % 4 == 0 and table and
+// rows 16-byte aligned (the wrapper checks). Returns the cudaError_t of
+// the launch (0 = success).
 int row_scatter_launch(float* table, const int32_t* idx, const float* rows,
                        int n_steps, int64_t n_rows, int width, int blocks,
-                       int device, void* stream) {
+                       int device, void* stream, int64_t n_table, int drop) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_steps <= 0 || n_rows <= 0 || width <= 0 || width % 4 != 0 || blocks <= 0) {
@@ -128,7 +139,8 @@ int row_scatter_launch(float* table, const int32_t* idx, const float* rows,
   float4* table4 = reinterpret_cast<float4*>(table);
   const float4* rows4 = reinterpret_cast<const float4*>(rows);
   int vec_per_row = width / 4;
-  void* args[] = {&table4, &idx, &rows4, &n_steps, &n_rows, &vec_per_row};
+  void* args[] = {&table4, &idx, &rows4, &n_steps, &n_rows, &vec_per_row,
+                  &n_table, &drop};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(row_scatter_kernel),
                                     dim3(blocks), dim3(kThreads), args, 0,
                                     static_cast<cudaStream_t>(stream));

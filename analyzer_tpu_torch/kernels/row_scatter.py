@@ -8,6 +8,12 @@ Two entry points to one kernel:
     launch for the whole run;
   * :func:`row_scatter` is one step, the S = 1 case.
 
+``mode="drop"`` (the JAX package's spelling, as in its
+``.at[idx].set(rows, mode="drop")``) skips every entry whose index lies
+outside ``[0, P)``; the sharded re-rate (:mod:`analyzer_tpu_torch.parallel.
+mesh`) pads each shard's compacted row list with such entries. Without it
+an out-of-range index is the caller's error (``check=True`` refuses it).
+
 On a CUDA tensor they launch the kernel (building it with nvcc for
 ``sm_90a`` on first use) or raise; on a CPU tensor — and only because the
 tensor lies on the CPU — they run the kernel's plain PyTorch version,
@@ -65,7 +71,7 @@ def load() -> ctypes.CDLL:
             lib.row_scatter_launch.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
             ]
             lib.row_scatter_launch.restype = ctypes.c_int
             lib.row_scatter_max_blocks.argtypes = [
@@ -96,22 +102,37 @@ def max_resident_blocks(device: torch.device) -> int:
     return _max_blocks[index]
 
 
+#: The scatter modes: None (every index in range) and "drop".
+MODES = (None, "drop")
+
+
+def _kept(idx: torch.Tensor, n_table: int) -> torch.Tensor:
+    """Drop mode's mask: the entries whose index lies in ``[0, n_table)``."""
+    return (idx >= 0) & (idx < n_table)
+
+
 def row_scatter_steps_plain(table: torch.Tensor, idx: torch.Tensor,
-                            rows: torch.Tensor) -> torch.Tensor:
+                            rows: torch.Tensor,
+                            mode: str | None = None) -> torch.Tensor:
     """The plain PyTorch version: one ``index_copy_`` per step, in order,
-    in place on ``table``."""
+    in place on ``table``; with ``mode="drop"`` each step masks its
+    out-of-range entries first."""
     for s in range(idx.shape[0]):
-        table.index_copy_(0, idx[s].long(), rows[s])
+        if mode == "drop":
+            keep = _kept(idx[s], table.shape[0])
+            table.index_copy_(0, idx[s][keep].long(), rows[s][keep])
+        else:
+            table.index_copy_(0, idx[s].long(), rows[s])
     return table
 
 
 def row_scatter_plain(table: torch.Tensor, idx: torch.Tensor,
-                      rows: torch.Tensor) -> torch.Tensor:
+                      rows: torch.Tensor, mode: str | None = None) -> torch.Tensor:
     """The plain PyTorch version of one step: ``index_copy_`` in place."""
-    return table.index_copy_(0, idx.long(), rows)
+    return row_scatter_steps_plain(table, idx[None], rows[None], mode)
 
 
-def _check(table, idx, rows, check: bool) -> None:
+def _check(table, idx, rows, check: bool, mode: str | None = None) -> None:
     """``idx`` ``[S, R]`` and ``rows`` ``[S, R, W]`` against ``table``."""
     if table.dtype != torch.float32 or table.dim() != 2:
         raise ValueError(
@@ -132,23 +153,32 @@ def _check(table, idx, rows, check: bool) -> None:
             raise ValueError(f"{name} is on {x.device}, table on {table.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if check and idx.numel():
-        lo, hi = int(idx.min()), int(idx.max())
-        if lo < 0 or hi >= p:
-            raise ValueError(f"idx must lie in [0, {p}), got [{lo}, {hi}]")
-        srt = idx.sort(dim=1).values
+        if mode == "drop":
+            # Only the kept entries must be distinct: the dropped ones
+            # (padding) may all share one out-of-range index.
+            kept = torch.where(_kept(idx, p), idx.long(), -1 - torch.arange(
+                idx.shape[1], device=idx.device))
+            srt = kept.sort(dim=1).values
+        else:
+            lo, hi = int(idx.min()), int(idx.max())
+            if lo < 0 or hi >= p:
+                raise ValueError(f"idx must lie in [0, {p}), got [{lo}, {hi}]")
+            srt = idx.sort(dim=1).values
         if bool((srt[:, 1:] == srt[:, :-1]).any()):
             raise ValueError("idx must be distinct within a step")
 
 
-def _scatter(table, idx, rows, grid_blocks):
+def _scatter(table, idx, rows, grid_blocks, mode=None):
     """Checked ``[S, R]`` / ``[S, R, W]`` inputs: the plain version on the
     CPU, one cooperative launch on the card."""
     global launches
     if idx.numel() == 0:
         return table
     if table.device.type == "cpu":
-        return row_scatter_steps_plain(table, idx, rows)
+        return row_scatter_steps_plain(table, idx, rows, mode)
     if table.device.type != "cuda":
         raise ValueError(f"row_scatter runs on cuda or cpu, not {table.device}")
     for name, x in (("table", table), ("rows", rows)):
@@ -169,7 +199,8 @@ def _scatter(table, idx, rows, grid_blocks):
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = lib.row_scatter_launch(
         table.data_ptr(), idx.data_ptr(), rows.data_ptr(), s_steps, n_rows,
-        width, blocks, table.device.index or 0, stream,
+        width, blocks, table.device.index or 0, stream, table.shape[0],
+        int(mode == "drop"),
     )
     if err != 0:
         raise RuntimeError(f"row_scatter kernel launch failed: CUDA error {err}")
@@ -179,7 +210,8 @@ def _scatter(table, idx, rows, grid_blocks):
 
 def row_scatter_steps(table: torch.Tensor, idx: torch.Tensor,
                       rows: torch.Tensor, check: bool = False,
-                      grid_blocks: int | None = None) -> torch.Tensor:
+                      grid_blocks: int | None = None,
+                      mode: str | None = None) -> torch.Tensor:
     """S steps in order, in place: ``table[idx[s, r], :] = rows[s, r, :]``
     for s = 0 .. S-1; returns ``table``.
 
@@ -187,16 +219,18 @@ def row_scatter_steps(table: torch.Tensor, idx: torch.Tensor,
     0``, ``idx`` ``[S, R]`` int32, all contiguous on one device. ``idx[s]``
     must lie in ``[0, P)`` and be distinct within the step (several writes
     to one row in one step land in no defined order); ``check=True``
-    verifies both, at the cost of a device sync. On the card the run is
-    one cooperative launch of ``grid_blocks`` blocks (default: enough for
-    one step, at most what the card holds resident; a larger grid is
+    verifies both, at the cost of a device sync. With ``mode="drop"`` an
+    index outside ``[0, P)`` writes nothing, and ``check=True`` verifies
+    distinctness among the kept entries only. On the card the run is one
+    cooperative launch of ``grid_blocks`` blocks (default: enough for one
+    step, at most what the card holds resident; a larger grid is
     refused)."""
-    _check(table, idx, rows, check)
-    return _scatter(table, idx, rows, grid_blocks)
+    _check(table, idx, rows, check, mode)
+    return _scatter(table, idx, rows, grid_blocks, mode)
 
 
 def row_scatter(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
-                check: bool = False) -> torch.Tensor:
+                check: bool = False, mode: str | None = None) -> torch.Tensor:
     """One step, ``table[idx[r], :] = rows[r, :]`` in place; returns
     ``table``. ``idx`` ``[R]`` int32 and ``rows`` ``[R, W]``; otherwise
     as :func:`row_scatter_steps`, of which it is the S = 1 case."""
@@ -204,4 +238,4 @@ def row_scatter(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
         raise ValueError(f"idx must be int32 [R], got {idx.dtype} {tuple(idx.shape)}")
     if rows.dim() != 2:
         raise ValueError(f"rows must be float32 [R, W], got {tuple(rows.shape)}")
-    return row_scatter_steps(table, idx[None], rows[None], check)
+    return row_scatter_steps(table, idx[None], rows[None], check, mode=mode)

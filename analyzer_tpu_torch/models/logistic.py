@@ -49,7 +49,8 @@ def train_logistic(
     device=None,
 ) -> tuple[LogisticModel, float]:
     """Trains on ``[N, F]`` features on ``device`` (None = the card);
-    returns (model, final mean NLL). ``mesh`` waits for ROADMAP A14."""
+    returns (model, final mean NLL). ``mesh`` trains data-parallel over its shards
+    (models.training)."""
     f = features.shape[1]
     model = LogisticModel(
         w=torch.zeros((f,), dtype=torch.float32),

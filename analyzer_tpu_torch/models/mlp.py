@@ -92,7 +92,8 @@ def train_mlp(
     device=None,
 ) -> tuple[MLPModel, float]:
     """Trains on ``[N, F]`` features on ``device`` (None = the card);
-    returns (model, final mean NLL). ``mesh`` waits for ROADMAP A14."""
+    returns (model, final mean NLL). ``mesh`` trains data-parallel over its shards
+    (models.training)."""
     model = init_mlp(features.shape[1], hidden, seed=seed, device="cpu")
     return train_minibatch(
         model, _nll, features, team0_won, epochs, batch_size, lr, seed,

@@ -27,8 +27,6 @@ from analyzer_tpu_torch.device import resolve_device
 #: optax.adam's defaults (optax 0.2.6, ``optax/_src/alias.py``).
 B1, B2, EPS, EPS_ROOT = 0.9, 0.999, 1e-8, 0.0
 
-A14 = "ROADMAP A14, parallel"
-
 
 def bias_corrections(n_steps: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     """``1 - b**t`` for t = 1..n_steps, float32, as optax's
@@ -79,12 +77,20 @@ def train_minibatch(
     mean of the last epoch's batch losses). ``model`` is moved to
     ``device`` (None = the card) and trained in place.
 
-    ``mesh`` (data-parallel training) waits for ROADMAP A14."""
+    ``mesh`` (a :class:`~analyzer_tpu_torch.parallel.mesh.Mesh` of D
+    shards) trains DATA-PARALLEL, as the JAX package's GSPMD partition
+    does: the batch size is rounded up to a multiple of D and every
+    minibatch splits into D equal slices; each process takes the gradient
+    of its shards' slices (each slice's masked mean weighted by its share
+    of the minibatch's real rows, so the slices sum to the minibatch's
+    masked mean), sums its shards in shard order, and one
+    ``all_reduce(SUM)`` adds the processes' sums — the psum GSPMD inserts.
+    Every process then applies the same Adam step to its replica. The
+    result equals single-device training up to float32 reduction order,
+    the JAX package's promise too."""
     if mesh is not None:
-        raise NotImplementedError(
-            f"data-parallel training (mesh=) is not ported yet ({A14}); "
-            "train on one device (mesh=None)"
-        )
+        n_dev = mesh.n_shards
+        batch_size = -(-batch_size // n_dev) * n_dev
     dev = resolve_device(device)
     n, f = features.shape
     n_batches = max(1, -(-n // batch_size))
@@ -112,9 +118,44 @@ def train_minibatch(
     step = 0
     for e in range(epochs):
         for b in range(n_batches):
-            loss = loss_fn(model, xb[b], yb[b], mb[b])
-            grads = torch.autograd.grad(loss, params)
+            if mesh is None:
+                loss = loss_fn(model, xb[b], yb[b], mb[b])
+                grads = torch.autograd.grad(loss, params)
+            else:
+                loss, grads = _sharded_grad(
+                    model, loss_fn, params, xb[b], yb[b], mb[b], mesh
+                )
             adam_step_(params, grads, mu, nu, bc1[step], bc2[step], lr)
             losses[e, b] = loss.detach()
             step += 1
     return model, float(losses[-1].mean())
+
+
+def _sharded_grad(model, loss_fn, params, x, y, m, mesh):
+    """(loss, grads) of one minibatch, data-parallel over ``mesh``: this
+    process's shards' weighted slice gradients summed in shard order, then
+    summed across processes in one ``all_reduce``."""
+    shard = x.shape[0] // mesh.n_shards
+    total = torch.clamp(m.sum(), min=1.0)
+    loss = None
+    grads = None
+    for d in mesh.local_shards:
+        sl = slice(d * shard, (d + 1) * shard)
+        weight = m[sl].sum() / total  # the slice's share of the real rows
+        part = loss_fn(model, x[sl], y[sl], m[sl]) * weight
+        g = torch.autograd.grad(part, params)
+        if grads is None:
+            loss, grads = part.detach(), [gi.detach() for gi in g]
+        else:
+            loss = loss + part.detach()
+            grads = [a + gi for a, gi in zip(grads, g)]
+    if mesh.distributed:
+        flat = torch.cat([loss.reshape(1)] + [g.reshape(-1) for g in grads])
+        mesh.all_reduce_(flat)
+        loss = flat[0]
+        out, off = [], 1
+        for g in grads:
+            out.append(flat[off: off + g.numel()].view_as(g))
+            off += g.numel()
+        grads = out
+    return loss, grads

@@ -11,7 +11,8 @@ the rating path's ``sched.*``, ``feed.*``, ``device.*``, ``profile.*`` and
 ``phase_seconds`` families (the runners, the prefetching feed, the
 device-memory sampler, the profile attribution, ``utils.profiling``), and
 the ingest plane's ``ingest.*`` (the columnar decoder, the staging arena),
-the fused window's ``fused.*``, and the live planes' ``history.*``,
+the fused window's ``fused.*``, the data-parallel mesh's ``mesh.*``, and
+the live planes' ``history.*``,
 ``slo.*``, ``audit.*``, ``fleet.*`` and ``obs.flight_dumps_total``
 (``jax.retraces_total`` is declared under the JAX name and stays 0:
 nothing in the port is jitted, and an SLO objective names it). The
@@ -196,6 +197,13 @@ STANDARD_COUNTERS = (
     "tier.demotions_total",
     "tier.dirty_writebacks_total",
     "tier.spills_total",
+    # The data-parallel mesh (parallel/mesh.py): host arrays put to the
+    # mesh per window (the same arrays, bytes and calls as the JAX
+    # package's _put_global), and the scatter rows a per-shard fused
+    # working set would have saved on its compacted row lists.
+    "mesh.put_bytes_total",
+    "mesh.puts_total",
+    "mesh.writebacks_avoidable_total",
     # Series the registry REFUSED to create because a label family hit
     # its cardinality cap (MAX_LABEL_VALUES): the canary for a label
     # minted from an unbounded value (queue names, player ids).
@@ -208,6 +216,14 @@ STANDARD_COUNTERS = (
     # Host-to-device bytes the publish path moved (the patch-vs-rebuild
     # pin).
     "serve.view_publish_bytes_total",
+    # The sharded serve plane (serve/view.py + serve/engine.py): routed
+    # per-shard query traffic (serve.shard.queries_total{shard=} series
+    # appear on first sample; the base is pre-declared), and the
+    # distributed top-k's host merges and candidate volume. Pre-declared
+    # so a single-device plane reads 0, not missing.
+    "serve.shard.queries_total",
+    "serve.shard.merges_total",
+    "serve.shard.merge_candidates_total",
     # Lineage cutovers and follower adoptions (serve/view.py).
     "serve.view_cutovers_total",
     "serve.view_adoptions_total",
@@ -313,6 +329,8 @@ STANDARD_GAUGES = (
     # first publish — a scraper can tell "no read plane" from "broken".
     "serve.view_version",
     "serve.view_age_seconds",
+    # Shard count of the sharded serve plane (0 = single-device).
+    "serve.shards",
     # The pipelined consume loop (service/pipeline.py): its resolved
     # commit lag, batches in flight past the last commit, whether the
     # worker fell back to the sequential loop, and throughput.
@@ -427,6 +445,10 @@ SCHEMA_HELP = {
     "tier.spills_total": "window cuts forced by an over-budget working set",
     "tier.hot_rows": "hot-set capacity in table rows",
     "tier.host_bytes": "cold tier's committed host bytes",
+    "mesh.put_bytes_total": "bytes moved by mesh global puts",
+    "mesh.puts_total": "mesh global put calls",
+    "mesh.writebacks_avoidable_total":
+        "scatter rows a per-shard fused working set would have saved",
     "obs.dropped_series_total":
         "series mints refused by the label-cardinality cap",
     "serve.queries_total": "queries answered by the serving plane",
@@ -437,11 +459,15 @@ SCHEMA_HELP = {
         "tier-histogram answers served from the version-keyed cache",
     "serve.view_publish_bytes_total":
         "host-to-device bytes moved by view publishes",
+    "serve.shard.queries_total": "queries routed to per-shard microbatches",
+    "serve.shard.merges_total": "cross-shard top-k host merges",
+    "serve.shard.merge_candidates_total": "candidates fed into shard merges",
     "serve.view_cutovers_total": "atomic dual-lineage view cutovers",
     "serve.view_adoptions_total":
         "leader views adopted by reference into a follower lineage",
     "serve.view_version": "current served view version",
     "serve.view_age_seconds": "seconds since the current view published",
+    "serve.shards": "shard count of the serving plane (0 = single)",
     "frontdoor.pool_reuse_total":
         "keep-alive connection reuses by the pooled HTTP client",
     "serve.microbatch_occupancy": "per-tick serve microbatch fill",

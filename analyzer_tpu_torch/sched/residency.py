@@ -264,3 +264,13 @@ def rate_window_checked(
         state, plan.slot_rows, plan.slot_idx, winner, mode_id, afk,
         cfg, collect=collect, backend=backend,
     )
+
+
+def window_reuse_stats(rows: np.ndarray) -> tuple[int, int]:
+    """(unique_rows, row_instances) over a window's written-row list — the
+    residency reuse measure. Shared with the sharded mesh feed
+    (:mod:`analyzer_tpu_torch.parallel.mesh`), which applies it to its
+    compacted row lists to report how much a per-shard fused window would
+    save (``mesh.writebacks_avoidable_total``)."""
+    rows = np.asarray(rows).ravel()
+    return int(np.unique(rows).size), int(rows.size)

@@ -37,6 +37,7 @@ sampled (throttled) at chunk boundaries.
 from __future__ import annotations
 
 import dataclasses
+import math
 import threading
 import time
 
@@ -431,21 +432,19 @@ def rate_stream(
     ``hot_rows`` and ``view_publisher`` mirror :func:`rate_history`: the
     cold rows are promoted on this same feed thread ahead of the window
     that needs them, and views publish at window boundaries plus the final
-    table. ``mesh`` (ROADMAP A14) is not ported yet and raises
-    NotImplementedError unless left at None (with ``hot_rows`` it is the
-    JAX package's ValueError: the two do not compose there either)."""
-    if hot_rows < 0:
-        raise ValueError(f"hot_rows must be >= 0, got {hot_rows}")
-    if mesh is not None:
-        if hot_rows:
-            raise ValueError(
-                "hot_rows > 0 is not supported with mesh= (each shard "
-                "tiering its slice independently is the ROADMAP item 2 "
-                "composition); drop mesh= or hot_rows"
-            )
-        raise NotImplementedError(
-            "mesh= is not ported yet (ROADMAP A14, parallel)"
-        )
+    table.
+
+    ``mesh`` (a :class:`~analyzer_tpu_torch.parallel.mesh.Mesh`) composes
+    this feed with the sharded-table data parallelism
+    (``parallel.mesh.ShardedRun``): every emitted window is routed on the
+    feed thread and dispatched to the mesh, so a sharded re-rate gets the
+    same concurrent assignment and O(window) host memory. The automatic
+    batch size is a multiple of ``lcm(8, D)`` (an explicit ``batch_size``
+    must be a multiple of D); ``collect``, ``kernel="fused"`` and
+    ``hot_rows`` are refused with the mesh, as in the JAX package; the hook
+    receives the snapshot THUNK of :meth:`~analyzer_tpu_torch.parallel.
+    mesh.ShardedRun.call_hook`, and a ``view_publisher`` gets only the
+    final (gathered) table."""
     n = stream.n_matches
     team = team_size or max(MAX_TEAM_SIZE, stream.team_size)
     if stream.team_size > team:
@@ -453,18 +452,46 @@ def rate_stream(
             f"stream team size {stream.team_size} exceeds team_size {team}"
         )
     fuse = resolve_fuse(kernel, fuse_window, fuse_max_rows, fuse_backend)
+    if hot_rows < 0:
+        raise ValueError(f"hot_rows must be >= 0, got {hot_rows}")
     check_seed_cfg(state, cfg)
+    run = None
+    if mesh is not None:
+        if collect:
+            raise ValueError(
+                "collect=True is not supported with mesh= (the sharded "
+                "scan carries only the table); use rate_history"
+            )
+        if fuse is not None:
+            raise ValueError(
+                "kernel='fused' is not supported with mesh= (the sharded "
+                "scatter is per-shard compacted; a per-shard fused "
+                "working set is tracked by parallel.mesh's "
+                "mesh.writebacks_avoidable_total accounting)"
+            )
+        if hot_rows:
+            raise ValueError(
+                "hot_rows > 0 is not supported with mesh= (each shard "
+                "tiering its slice independently is the ROADMAP item 2 "
+                "composition); drop mesh= or hot_rows"
+            )
+        from analyzer_tpu_torch.parallel.mesh import ShardedRun
+
+        run = ShardedRun(state, cfg, mesh)
     pad_row = state.pad_row
     tier = TierManager(state, hot_rows) if hot_rows else None
     if tier is not None and fuse is not None:
         fuse = tier.clamp_fuse(fuse)
-    state = tier.hot_state() if tier is not None else state.clone()
+    if run is None:
+        state = tier.hot_state() if tier is not None else state.clone()
     if n == 0:
         if stats_out is not None:
             stats_out.update(
                 n_steps=0, batch_size=0, occupancy=0.0, choose_batch_size_s=0.0
             )
-        if tier is not None:
+        if run is not None:
+            state = run.finish()
+        elif tier is not None:
             state = tier.finish(state.table)
         return state, (_gather_outputs([], np.empty(0, np.int32), 0, team)
                        if collect else None)
@@ -474,17 +501,35 @@ def rate_stream(
             f"but the player table only has rows 0..{pad_row - 1}"
         )
     t_choose = time.perf_counter()
-    b = batch_size or choose_batch_size_streamed(stream)
+    if run is not None:
+        n_dev = mesh.n_shards
+        if batch_size is None:
+            # The mesh-aware multiple keeps B both 8-aligned and divisible
+            # by D, even for a D that is not a power of two.
+            m = math.lcm(8, n_dev)
+            b = choose_batch_size_streamed(stream, batch_multiple=m)
+            b = -(-b // m) * m  # the mean-width candidate can undershoot m
+        elif batch_size % n_dev:
+            raise ValueError(
+                f"batch_size {batch_size} not divisible by mesh size {n_dev}"
+            )
+        else:
+            b = batch_size
+    else:
+        b = batch_size or choose_batch_size_streamed(stream)
     t_choose = time.perf_counter() - t_choose
     feed = _StreamFeed(
         stream, b, steps_per_chunk or min(8192, max(256, -(-n // b) // 8 or 1)),
         team, pad_row, fuse, collect, state.table.is_cuda, poll_interval,
-        tier,
+        tier, run,
     )
-    state, outs, fused_flat, totals = _consume(
-        feed.produce, state, pad_row, cfg, fuse, collect, on_chunk,
-        prefetch_depth, tier, view_publisher, end_step=lambda: feed.s_total,
-    )
+    if run is not None:
+        run.consume(feed.produce, on_chunk, prefetch_depth)
+    else:
+        state, outs, fused_flat, totals = _consume(
+            feed.produce, state, pad_row, cfg, fuse, collect, on_chunk,
+            prefetch_depth, tier, view_publisher, end_step=lambda: feed.s_total,
+        )
     reg = get_registry()
     reg.gauge("sched.occupancy").set(round(n / (feed.s_total * b), 4))
     reg.counter("sched.steps_total").add(feed.s_total)
@@ -495,6 +540,11 @@ def rate_stream(
         )
         if fuse is not None:
             stats_out.update(totals)
+    if run is not None:
+        state = run.finish()
+        if view_publisher is not None:
+            view_publisher.publish_state(state)  # final table, unthrottled
+        return state, None
     if not collect:
         return state, None
     flat_idx = (_flat(fused_flat) if fused_flat is not None
@@ -511,9 +561,10 @@ class _StreamFeed:
     SENTINEL = np.iinfo(np.int64).min
 
     def __init__(self, stream, b, spc, team, pad_row, fuse, collect, pin,
-                 poll_interval, tier=None):
+                 poll_interval, tier=None, run=None):
         n = stream.n_matches
         self.tier = tier
+        self.run = run  # a ShardedRun: windows are routed for the mesh
         self.stream, self.b, self.spc, self.team = stream, b, spc, team
         self.pad_row, self.fuse, self.collect, self.pin = pad_row, fuse, collect, pin
         self.poll_interval = poll_interval
@@ -601,20 +652,24 @@ class _StreamFeed:
             win[free] = self.fillers[self.n_fill: self.n_fill + take]
             self.n_fill += take
         mi = win.reshape(e1 - e0, b)
-        with get_tracer().span("feed.materialize", cat="sched", start=e0):
-            pidx, _mask = materialize_gather_window(
+        tracer = get_tracer()
+        with tracer.span("feed.materialize", cat="sched", start=e0):
+            pidx, mask = materialize_gather_window(
                 self.stream, mi, self.pad_row, self.team
             )
             winner, mode_id, afk = materialize_scalar_window(self.stream, mi)
-            if self.fuse is not None:
+            if self.run is None and self.fuse is not None:
                 return stage_fused_windows(
                     pidx, winner, mode_id, afk, self.pad_row, self.fuse,
                     match_idx=mi if self.collect else None, pin=self.pin,
                     tier=self.tier,
                 )
-            if self.tier is not None:
+            if self.run is None and self.tier is not None:
                 return self.tier.stage_windows(pidx, winner, mode_id, afk)
-            return stage_window(pidx, winner, mode_id, afk, self.pin)
+            if self.run is None:
+                return stage_window(pidx, winner, mode_id, afk, self.pin)
+        with tracer.span("feed.transfer", cat="sched", start=e0):
+            return self.run.stage(pidx, mask, winner, mode_id, afk)
 
     def _emit(self, put, e1: int) -> None:
         e0 = self.emitted

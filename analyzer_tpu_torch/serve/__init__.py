@@ -1,6 +1,6 @@
 """ratesrv: the snapshot-consistent query-serving plane, on the card.
 
-Counterpart of the single plane of ``analyzer_tpu.serve``. The write plane
+Counterpart of ``analyzer_tpu.serve``, its single and sharded planes. The write plane
 (``sched/runner.py``) rates matches into a device-resident rating table;
 this package is the READ plane that serves queries against it — player
 lookups, leaderboards, tier histograms and win probability — Clipper-style
@@ -13,9 +13,13 @@ Three layers:
     immutable published snapshot of the rating table + id-to-row mapping,
     double-buffered by a :class:`ViewPublisher` so the rater publishes at
     commit boundaries and readers never observe torn mid-commit state;
+    the sharded plane's :class:`ShardedRatingsView` /
+    :class:`ShardedViewPublisher` hold one snapshot per mesh shard under
+    one version;
   * :mod:`~analyzer_tpu_torch.serve.engine` — :class:`QueryEngine`, the
     microbatching executor (pad-to-bucket requests, version-keyed
-    leaderboard and count caches);
+    leaderboard and count caches), and :class:`ShardedQueryEngine`, its
+    routed per-shard counterpart;
   * :mod:`~analyzer_tpu_torch.serve.server` — the ``/v1/*`` HTTP endpoints
     on the shared :mod:`analyzer_tpu_torch.obs.httpd` plumbing, started via
     ``cli serve``.
@@ -23,22 +27,30 @@ Three layers:
 ``serve/oracle.py`` is the pure-Python reference every served number is
 held to bit for bit; it is never imported by the serving path.
 
-Not ported yet: the sharded plane (ROADMAP A11b) and the front door
-(ROADMAP A11c).
+Not ported yet: the front door (ROADMAP A11c).
 """
 
 from analyzer_tpu_torch.serve.engine import (
     QueryEngine,
     ServePlane,
+    ShardedQueryEngine,
     UnknownPlayerError,
 )
-from analyzer_tpu_torch.serve.view import RatingsView, ViewPublisher
+from analyzer_tpu_torch.serve.view import (
+    RatingsView,
+    ShardedRatingsView,
+    ShardedViewPublisher,
+    ViewPublisher,
+)
 
 __all__ = [
     "QueryEngine",
     "RatingsView",
     "ServePlane",
     "ServeServer",
+    "ShardedQueryEngine",
+    "ShardedRatingsView",
+    "ShardedViewPublisher",
     "UnknownPlayerError",
     "ViewPublisher",
 ]

@@ -45,8 +45,10 @@ every request in that tick against it, so each response is internally
 consistent with exactly one published version (reported as ``version`` in
 every result).
 
-The sharded engine (``ShardedQueryEngine``) is not ported yet (ROADMAP
-A11b).
+The sharded engine (:class:`ShardedQueryEngine`) serves the same responses
+from a :class:`~analyzer_tpu_torch.serve.view.ShardedViewPublisher`'s
+per-shard tables: routed per-shard gathers, per-shard leaderboards merged
+on the host by ``(-score, global_row)``, per-shard integer counts summed.
 """
 
 from __future__ import annotations
@@ -821,8 +823,8 @@ class QueryEngine:
 class ServePlane(Protocol):
     """The topology-blind serving surface: everything above the engine
     — ``serve/server.py``'s ``/v1/*`` routes, ``cli serve`` — programs
-    against THIS, so the single-device :class:`QueryEngine` and a sharded
-    engine (ROADMAP A11b) interchange without a caller edit."""
+    against THIS, so the single-device :class:`QueryEngine` and the
+    :class:`ShardedQueryEngine` interchange without a caller edit."""
 
     max_batch: int
 
@@ -845,3 +847,277 @@ class ServePlane(Protocol):
     def stats(self) -> dict: ...
 
 
+
+
+class ShardedQueryEngine(QueryEngine):
+    """The sharded plane's engine: point lookups route by player-id ->
+    shard (the mesh's interleaved layout, ``serve/view.py:shard_of_row``)
+    and coalesce into PER-SHARD microbatches on the same power-of-two
+    buckets; leaderboards run per-shard top-k (the stable sort of
+    :func:`_leaderboard`) + a host merge of the S·k candidates; tier
+    histograms and percentiles sum per-shard partial counts on the host
+    (exact integers). ``source`` is a
+    :class:`~analyzer_tpu_torch.serve.view.ShardedViewPublisher`; each
+    shard's work runs on the device its table lives on.
+
+    Bit-identity contract: every response equals the single-device
+    :class:`QueryEngine`'s and the pure-Python oracle's, bit for bit —
+    gathers move identical float32 rows, the winprob reduction replays
+    :func:`_team_stats`' pinned float32 order on the host, the leaderboard
+    merge key ``(-score, global_row)`` reproduces the stable sort's
+    tie order on the unsharded table, and count sums are integer-exact.
+
+    ``all_gather_topk=True`` replaces the S per-shard sorts with ONE sort
+    over the stacked ``[S, A+1]`` score tensor where all shards share a
+    device (per device, concatenated in shard order, where they do not):
+    the same candidates, the same merge — one dispatch instead of S."""
+
+    def __init__(
+        self,
+        source,
+        cfg: RatingConfig | None = None,
+        max_batch: int = 256,
+        tick_interval_s: float = 0.001,
+        tier_edges=None,
+        clock=time.monotonic,
+        all_gather_topk: bool = False,
+        device=None,
+        auditor=None,
+    ) -> None:
+        super().__init__(
+            source,
+            cfg=cfg,
+            max_batch=max_batch,
+            tick_interval_s=tick_interval_s,
+            tier_edges=tier_edges,
+            clock=clock,
+            device=device,
+            auditor=auditor,
+        )
+        self.all_gather_topk = bool(all_gather_topk)
+        # Winprob flattens up to max_batch * 2T ids through the routed
+        # gather: the gather bucket covers whichever coalescing cap is
+        # larger.
+        self._gather_cap = self.max_batch * max(
+            RATINGS_ID_FACTOR, 2 * MAX_TEAM_SIZE
+        )
+        self._shard_scores: tuple[int, list] | None = None
+
+    # -- routed gathers ---------------------------------------------------
+    def _sharded_gather(self, view, flat: list) -> np.ndarray:
+        """Whole-row gather for GLOBAL rows ``flat``, routed by owner shard:
+        one padded gather per shard that owns any of the tick's rows,
+        results scattered back into request order on the host — never a
+        whole-table transfer."""
+        if len(flat) > self._gather_cap:
+            raise ValueError(
+                f"{len(flat)} ids in one routed microbatch exceeds the "
+                f"engine cap {self._gather_cap}; split the request"
+            )
+        n_shards = view.n_shards
+        out = np.empty((len(flat), view.shards[0].table.shape[1]), np.float32)
+        per: list[list] = [[] for _ in range(n_shards)]
+        for pos, row in enumerate(flat):
+            per[row % n_shards].append((pos, row // n_shards))
+        reg = get_registry()
+        for d, pairs in enumerate(per):
+            if not pairs:
+                continue
+            shard = view.shards[d]
+            qb = query_bucket(len(pairs), self._gather_cap)
+            idx = np.full(qb, shard.pad_row, np.int64)
+            idx[: len(pairs)] = [loc for _pos, loc in pairs]
+            reg.counter("serve.shard.queries_total", shard=str(d)).add(
+                len(pairs)
+            )
+            rows = _gather_rows(
+                shard.table, torch.from_numpy(idx).to(shard.table.device)
+            ).cpu().numpy()
+            out[[pos for pos, _loc in pairs]] = rows[: len(pairs)]
+        return out
+
+    def _ratings_gather(self, view, flat: list) -> np.ndarray:
+        qb = query_bucket(
+            max(len(flat), 1), self.max_batch * RATINGS_ID_FACTOR
+        )
+        if len(flat) > qb:
+            raise ValueError(
+                f"{len(flat)} ids in one ratings microbatch exceeds the "
+                f"engine cap {qb}; split the request"
+            )
+        self._observe_occupancy("ratings", len(flat), qb)
+        return self._sharded_gather(view, flat)
+
+    def _winprob_stats(self, view, live: list):
+        """Routed row gathers + :func:`_team_stats`' fixed-order float32
+        team reduction replayed on the host: every add and multiply below
+        is a correctly-rounded ``np.float32`` primitive in the same
+        team-major slot-minor order from zero, so the statistics — and the
+        float64 finish downstream — carry the single plane's bits."""
+        q = len(live)
+        qb = query_bucket(q, self.max_batch)
+        self._observe_occupancy("winprob", q, qb)
+        flat: list[int] = []
+        for _req, rows_a, rows_b in live:
+            flat.extend(rows_a)
+            flat.extend(rows_b)
+        rows = self._sharded_gather(view, flat)
+        one = np.float32(1.0)
+        n = np.zeros(q, np.float32)
+        s2 = np.zeros(q, np.float32)
+        mu_diff = np.zeros(q, np.float32)
+        pos = 0
+        for i, (_req, rows_a, rows_b) in enumerate(live):
+            acc_n = np.float32(0.0)
+            acc_s2 = np.float32(0.0)
+            team_mu = [np.float32(0.0), np.float32(0.0)]
+            for t, team_rows in enumerate((rows_a, rows_b)):
+                for _row in team_rows:
+                    r = rows[pos]
+                    pos += 1
+                    mu = np.float32(r[MU_LO])
+                    sg = np.float32(r[SIGMA_LO])
+                    if math.isnan(float(mu)):
+                        mu = np.float32(r[COL_SEED_MU])
+                        sg = np.float32(r[COL_SEED_SIGMA])
+                    acc_n = np.float32(acc_n + one)
+                    acc_s2 = np.float32(acc_s2 + np.float32(sg * sg))
+                    team_mu[t] = np.float32(team_mu[t] + mu)
+            n[i] = acc_n
+            s2[i] = acc_s2
+            mu_diff[i] = np.float32(team_mu[0] - team_mu[1])
+        return n, s2, mu_diff
+
+    # -- distributed top-k ------------------------------------------------
+    def _shard_topk(self, view, kb: int):
+        """(vals, local_idx) ``[S, kb]``: a stable descending sort per
+        shard, or one sort per device over the stacked score columns
+        (``all_gather_topk``)."""
+        reg = get_registry()
+        n_shards = view.n_shards
+        vals = np.empty((n_shards, kb), np.float32)
+        idx = np.empty((n_shards, kb), np.int64)
+        if self.all_gather_topk:
+            by_device: dict = {}
+            for d, shard in enumerate(view.shards):
+                by_device.setdefault(shard.table.device, []).append(d)
+            for shards in by_device.values():
+                scores = []
+                for d in shards:
+                    score, rated = _scores(view.shards[d].table)
+                    scores.append(torch.where(
+                        rated, score, torch.full_like(score, -math.inf)))
+                v, i = torch.sort(torch.stack(scores), dim=1,
+                                  descending=True, stable=True)
+                vals[shards] = v[:, :kb].cpu().numpy()
+                idx[shards] = i[:, :kb].cpu().numpy()
+            for d in range(n_shards):
+                reg.counter("serve.shard.queries_total", shard=str(d)).add(1)
+            return vals, idx
+        for d, shard in enumerate(view.shards):
+            v, i = _leaderboard(shard.table, kb)
+            vals[d] = v.cpu().numpy()
+            idx[d] = i.cpu().numpy()
+            reg.counter("serve.shard.queries_total", shard=str(d)).add(1)
+        return vals, idx
+
+    def _leaderboard_rows(self, view, k: int):
+        """Per-shard top-k_bucket + host merge of the S·k candidates. The
+        merge key ``(-score, global_row)`` with global row ``local*S + d``
+        reproduces the single plane's descending order and low-row
+        tie-break on the unsharded table — ties that span shard boundaries
+        included."""
+        rows_local = view.shards[0].table.shape[0]
+        kb = min(query_bucket(k, rows_local), rows_local)
+        cached = self._lb_cache
+        if cached is not None and cached[0] == view.version and cached[1] >= kb:
+            get_registry().counter("serve.leaderboard_cache_hits_total").add(1)
+            kb, vals_s, idx_s = cached[1], cached[2], cached[3]
+        else:
+            vals_s, idx_s = self._shard_topk(view, kb)
+            self._lb_cache = (view.version, kb, vals_s, idx_s)
+        n_shards = view.n_shards
+        reg = get_registry()
+        reg.counter("serve.shard.merges_total").add(1)
+        reg.counter("serve.shard.merge_candidates_total").add(n_shards * kb)
+        entries = []
+        for d in range(n_shards):
+            for j in range(kb):
+                v = float(vals_s[d, j])
+                if not math.isfinite(v):
+                    break  # the shard's rated rows ran out (-inf tail)
+                entries.append((v, int(idx_s[d, j]) * n_shards + d, vals_s[d, j]))
+        merged = merge_topk_candidates(entries)
+        vals = np.array([c[2] for c in merged], np.float32)
+        idx = np.array([c[1] for c in merged], np.int64)
+        return vals, idx
+
+    def _leader_rows(self, view, rows_idx: list) -> np.ndarray:
+        """Routed per-shard gathers for the winning rows (chunked to the
+        gather cap): the bits a host-table slice would carry, without a
+        cross-shard table reassembly on the serving path."""
+        width = view.shards[0].table.shape[1]
+        out = np.empty((len(rows_idx), width), np.float32)
+        for lo in range(0, len(rows_idx), self._gather_cap):
+            chunk = list(rows_idx[lo: lo + self._gather_cap])
+            out[lo: lo + len(chunk)] = self._sharded_gather(view, chunk)
+        return out
+
+    # -- per-shard partial counts ----------------------------------------
+    def _sorted_shard_scores(self, view) -> list:
+        """Each shard's rated scores, ascending — sorted once per version."""
+        cached = self._shard_scores
+        if cached is None or cached[0] != view.version:
+            cached = (view.version, [
+                _sorted_rated_scores(shard.table) for shard in view.shards
+            ])
+            self._shard_scores = cached
+        return cached[1]
+
+    def _tier_ge(self, view) -> tuple[list, int]:
+        reg = get_registry()
+        ge = np.zeros(len(self.tier_edges), np.int64)
+        rated = 0
+        for d, scores in enumerate(self._sorted_shard_scores(view)):
+            edges = torch.from_numpy(self.tier_edges).to(scores.device)
+            g, r = _tier_counts(scores, edges)
+            ge += g.cpu().numpy().astype(np.int64)
+            rated += int(r)
+            reg.counter("serve.shard.queries_total", shard=str(d)).add(1)
+        return [int(x) for x in ge], rated
+
+    def _percentile_counts(self, view, vals: np.ndarray):
+        below = np.zeros(len(vals), np.int64)
+        rated = 0
+        for scores in self._sorted_shard_scores(view):
+            b, r = _count_below(scores, torch.from_numpy(vals).to(scores.device))
+            below += b.cpu().numpy().astype(np.int64)
+            rated += int(r)
+        return below, rated
+
+    # -- lifecycle --------------------------------------------------------
+    def warmup(self, view=None) -> int:
+        """Runs every device function once against every shard of the
+        current view (on each shard's device) at the smallest request
+        bucket, so no production query pays a first call's one-time costs.
+        Returns the number of device functions run."""
+        view = view or self._current_view()
+        qb = QUERY_BUCKET_FLOOR
+        calls = 0
+        for shard in view.shards:
+            pad = torch.full((qb,), shard.pad_row, dtype=torch.long,
+                             device=shard.table.device)
+            _gather_rows(shard.table, pad)
+            _leaderboard(shard.table, min(qb, shard.table.shape[0]))
+            calls += 2
+        self._tier_ge(view)
+        self._percentile_counts(view, np.zeros(qb, np.float32))
+        calls += 2 * view.n_shards
+        if self.all_gather_topk:
+            self._shard_topk(view, min(qb, view.shards[0].table.shape[0]))
+            calls += 1
+        for shard in view.shards:
+            if shard.table.is_cuda:
+                torch.cuda.synchronize(shard.table.device)
+        get_registry().gauge("serve.shards").set(view.n_shards)
+        return calls

@@ -1,6 +1,6 @@
 """Versioned, snapshot-consistent views of the live rating table.
 
-Counterpart of the single-plane half of ``analyzer_tpu.serve.view``. The
+Counterpart of ``analyzer_tpu.serve.view``. The
 write plane commits continuously; readers must never observe a
 half-committed table. The mechanism is double-buffering at the publish
 boundary:
@@ -35,9 +35,16 @@ Row sizing rides the power-of-two bucket ladder of :func:`row_bucket`, so a
 table that grows by appends is rebuilt once per doubling and patched in
 between.
 
-The sharded plane (``ShardedRatingsView``, ``ShardedViewPublisher``) needs
-more than one device and is not ported yet (ROADMAP A11b); the row
-ownership helpers it shares with the write mesh are here.
+The SHARDED plane (:class:`ShardedViewPublisher`) applies the same contract
+per mesh shard: the table splits by the mesh's interleaved ownership
+(global row ``r`` -> shard ``r % S`` at local row ``r // S``, the
+:mod:`analyzer_tpu_torch.parallel.mesh` layout invariant), every publish
+swaps ONE :class:`ShardedRatingsView` holding all ``S`` per-shard snapshots
+under a single monotone version — a reader can never observe a torn
+cross-shard version — and per-shard updates ride the single plane's
+copy-on-write ``index_copy_`` patch, so only each shard's touched rows cross
+to the device. The shards live on one device (the CPU test shape, and the
+one card) or on a list of devices, shard ``d`` on ``devices[d % len]``.
 """
 
 from __future__ import annotations
@@ -500,5 +507,445 @@ class ViewPublisher:
         reg = get_registry()
         reg.gauge("serve.view_version").set(self._version)
         reg.gauge("serve.view_age_seconds").set(0.0)
+        reg.counter("serve.view_publishes_total").add(1)
+        return view
+
+
+class ShardedRatingsView:
+    """One immutable published snapshot of the SHARDED serving plane: ``S``
+    per-shard :class:`RatingsView` objects frozen under a single version
+    number. A reader resolving ``current()`` once can never mix shard
+    tables from two publishes — the cross-shard torn-read guard is this
+    object's existence, not any per-shard discipline.
+
+    Per-shard tables are ``[local_alloc+1, 16]`` in shard-LOCAL row order
+    (global row ``r`` -> shard ``r % S`` local row ``r // S``), all shards
+    sharing ONE local row bucket."""
+
+    __slots__ = (
+        "version", "shards", "n_players", "n_shards", "published_at",
+        "_row_of", "_ids", "_host",
+    )
+
+    def __init__(self, version, shards, n_players, row_of, ids) -> None:
+        self.version = version
+        self.shards = tuple(shards)
+        self.n_players = n_players
+        self.n_shards = len(self.shards)
+        self.published_at = time.monotonic()
+        self._row_of = row_of
+        self._ids = ids
+        self._host = None
+
+    @property
+    def age_s(self) -> float:
+        return time.monotonic() - self.published_at
+
+    def resolve(self, player_id: str) -> int | None:
+        """GLOBAL row for ``player_id`` at this version (same contract as
+        :meth:`RatingsView.resolve`)."""
+        if self._row_of is None:  # identity mode: ids ARE row indices
+            try:
+                row = int(player_id)
+            except (TypeError, ValueError):
+                return None
+        else:
+            row = self._row_of.get(player_id)
+            if row is None:
+                return None
+        return row if 0 <= row < self.n_players else None
+
+    def locate(self, player_id: str) -> tuple[int, int] | None:
+        """(shard, local_row) for ``player_id``, or None when unknown — the
+        routed-lookup primitive the sharded engine groups by."""
+        row = self.resolve(player_id)
+        if row is None:
+            return None
+        return shard_of_row(row, self.n_shards), local_of_row(
+            row, self.n_shards
+        )
+
+    def id_of(self, row: int) -> str:
+        """The player id published at GLOBAL ``row`` (< ``n_players``)."""
+        if self._ids is None:
+            return str(row)
+        return self._ids[row]
+
+    def host_table(self) -> np.ndarray:
+        """The logical ``[n_players, 16]`` host table reassembled from the
+        per-shard slices (fetched once, cached): the oracle, the shadow
+        audit and debug surfaces read it; the routed query path never
+        does."""
+        if self._host is None:
+            out = np.empty((self.n_players, TABLE_WIDTH), np.float32)
+            for d, shard in enumerate(self.shards):
+                ln = shard.n_players
+                if ln:
+                    out[d:: self.n_shards] = shard.host_table()[:ln]
+            self._host = out
+        return self._host
+
+
+class ShardedViewPublisher:
+    """The sharded plane's write side: one version-consistent
+    :class:`RatingsView` per mesh shard, swapped atomically as a single
+    :class:`ShardedRatingsView` under one monotone version.
+
+    Mirrors :class:`ViewPublisher`'s modes (id-merge :meth:`publish_rows`,
+    whole-table :meth:`publish_state`) and adds the mesh runner's
+    per-shard incremental entry :meth:`publish_shard_patches` — each
+    shard's touched rows ride the single plane's copy-on-write patch, so a
+    commit's host-to-device cost is per-shard rows, never the table.
+
+    ``devices`` (optional, a list of torch devices) puts shard ``d``'s
+    table on ``devices[d % len(devices)]``; without it every shard lives on
+    ``device`` (None = the card).
+
+    Thread contract: identical to :class:`ViewPublisher` — one writer at a
+    time (writer lock), :meth:`current` lock-free from any thread.
+    """
+
+    def __init__(
+        self,
+        n_shards: int,
+        min_publish_interval_s: float = 2.0,
+        devices=None,
+        device=None,
+    ) -> None:
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        self.n_shards = int(n_shards)
+        self.device = resolve_device(device) if devices is None else None
+        self._devices = (
+            [resolve_device(d) for d in devices] if devices is not None
+            else None
+        )
+        self._lock = threading.Lock()
+        self._row_of: dict[str, int] | None = {}
+        self._ids: list[str] | None = []
+        self._local_alloc = PATCH_BUCKET_FLOOR
+        self._staging = [
+            np.full((self._local_alloc + 1, TABLE_WIDTH), np.nan, np.float32)
+            for _ in range(self.n_shards)
+        ]
+        self._view: ShardedRatingsView | None = None
+        self._version = 0
+        self.min_publish_interval_s = min_publish_interval_s
+        self._last_publish: float | None = None
+        self._retired = False  # see ViewPublisher: consumed by a cutover
+
+    # -- read side --------------------------------------------------------
+    def current(self) -> ShardedRatingsView | None:
+        """The latest published sharded view (None before the first
+        publish). One atomic reference read — never blocks, never tears
+        across shards."""
+        return self._view
+
+    @property
+    def version(self) -> int:
+        return self._version
+
+    def view_age_s(self) -> float | None:
+        view = self._view
+        return None if view is None else view.age_s
+
+    def due(self) -> bool:
+        """Same throttle contract as :meth:`ViewPublisher.due`."""
+        return (
+            self._last_publish is None
+            or time.monotonic() - self._last_publish
+            >= self.min_publish_interval_s
+        )
+
+    def device_of(self, d: int) -> torch.device:
+        """The device shard ``d``'s tables live on."""
+        if self._devices is None:
+            return self.device
+        return self._devices[d % len(self._devices)]
+
+    # -- write side -------------------------------------------------------
+    def publish_rows(self, ids, rows) -> ShardedRatingsView:
+        """Id-merge publish (the service worker's commit boundary): routes
+        each id's row to its owner shard and patches only the shards a
+        commit touched — untouched shards carry their previous device
+        table forward with zero transfer."""
+        rows = np.array(rows, np.float32)
+        if (
+            rows.ndim != 2
+            or rows.shape[1] != TABLE_WIDTH
+            or len(ids) != rows.shape[0]
+        ):
+            raise ValueError(
+                f"publish_rows wants [n, {TABLE_WIDTH}] rows matching ids; "
+                f"got {rows.shape} for {len(ids)} ids"
+            )
+        with self._lock:
+            if self._row_of is None:
+                raise ValueError(
+                    "publisher is in table mode (publish_state with "
+                    "index-addressed rows); per-id merges need id-mapped "
+                    "publishes from the start"
+                )
+            prev = self._view
+            touched = np.empty(len(ids), np.int64)
+            for i, pid in enumerate(ids):
+                row = self._row_of.get(pid)
+                if row is None:
+                    row = len(self._ids)
+                    self._row_of[pid] = row
+                    self._ids.append(pid)
+                touched[i] = row
+            p = len(self._ids)
+            alloc = row_bucket(shard_player_count(p, 0, self.n_shards))
+            patchable = prev is not None and alloc == self._local_alloc
+            self._grow_local(alloc)
+            shard = shard_of_row(touched, self.n_shards)
+            local = local_of_row(touched, self.n_shards)
+            tables = []
+            for d in range(self.n_shards):
+                mine = shard == d
+                self._staging[d][local[mine]] = rows[mine]
+                if patchable and not mine.any():
+                    tables.append(prev.shards[d].table)  # zero transfer
+                elif patchable:
+                    # index_copy_ promises no order among duplicate
+                    # indices: send each touched row once, merged.
+                    uniq = np.unique(local[mine])
+                    tables.append(self._patch_shard(
+                        d, prev.shards[d].table, uniq, self._staging[d][uniq]
+                    ))
+                else:
+                    tables.append(self._rebuild_shard(d))
+            return self._swap(tables, p)
+
+    def publish_state(self, state, ids=None) -> ShardedRatingsView:
+        """Whole-table publish, split by interleaved ownership — the
+        topology-blind bootstrap (``cli serve --shards``, the sched
+        runners' final snapshot). The table is copied to the host first."""
+        table = getattr(state, "table", state)
+        if isinstance(table, torch.Tensor):
+            host = table.detach().to("cpu", torch.float32).numpy()
+        else:
+            host = np.asarray(table, np.float32)
+        p = host.shape[0] - 1
+        if ids is not None and len(ids) != p:
+            raise ValueError(f"{len(ids)} ids for a {p}-player table")
+        with self._lock:
+            if ids is None:
+                self._row_of = None
+                self._ids = None
+            else:
+                self._row_of = {pid: i for i, pid in enumerate(ids)}
+                self._ids = list(ids)
+            self._local_alloc = row_bucket(
+                shard_player_count(p, 0, self.n_shards)
+            )
+            tables = []
+            for d in range(self.n_shards):
+                self._staging[d] = np.full(
+                    (self._local_alloc + 1, TABLE_WIDTH), np.nan, np.float32
+                )
+                mine = host[:p][d:: self.n_shards]
+                self._staging[d][: mine.shape[0]] = mine
+                tables.append(self._rebuild_shard(d))
+            return self._swap(tables, p)
+
+    def maybe_publish_state(self, state, ids=None) -> ShardedRatingsView | None:
+        """Throttled :meth:`publish_state` (the sched-runner surface)."""
+        if not self.due():
+            return None
+        return self.publish_state(state, ids=ids)
+
+    def publish_shard_patches(
+        self, patches, n_players: int, full_slices
+    ) -> ShardedRatingsView:
+        """Table-mode INCREMENTAL publish from a writer that already holds
+        per-shard slices in shard-local order — the sharded mesh runner
+        (``parallel.mesh.ShardedRun``), whose routing names every row each
+        shard wrote since the last publish.
+
+        ``patches``: one ``(local_rows_idx, rows)`` pair per shard (no
+        duplicate indices) — only those rows cross to the device.
+        ``full_slices``: zero-arg callable producing per-shard ``[>=
+        local_n, 16]`` host slices in local row order — the rebuild
+        fallback (first publish, id-mapped publisher, bucket growth),
+        mirroring :meth:`ViewPublisher.publish_state_patch`."""
+        if len(patches) != self.n_shards:
+            raise ValueError(
+                f"{len(patches)} shard patches for a {self.n_shards}-shard "
+                "publisher"
+            )
+        with self._lock:
+            alloc = row_bucket(
+                shard_player_count(n_players, 0, self.n_shards)
+            )
+            prev = self._view
+            patchable = (
+                prev is not None
+                and self._row_of is None
+                and alloc == self._local_alloc
+                and prev.n_players <= n_players
+            )
+            if not patchable:
+                slices = full_slices()
+                self._row_of = None
+                self._ids = None
+                self._local_alloc = alloc
+                tables = []
+                for d in range(self.n_shards):
+                    ln = shard_player_count(n_players, d, self.n_shards)
+                    self._staging[d] = np.full(
+                        (alloc + 1, TABLE_WIDTH), np.nan, np.float32
+                    )
+                    self._staging[d][:ln] = np.asarray(
+                        slices[d], np.float32
+                    )[:ln]
+                    tables.append(self._rebuild_shard(d))
+                return self._swap(tables, n_players)
+            tables = []
+            for d, (idx, rows) in enumerate(patches):
+                idx = np.asarray(idx, np.int64)
+                rows = np.asarray(rows, np.float32)
+                self._staging[d][idx] = rows
+                if idx.size:
+                    tables.append(
+                        self._patch_shard(d, prev.shards[d].table, idx, rows)
+                    )
+                else:
+                    tables.append(prev.shards[d].table)
+            return self._swap(tables, n_players)
+
+    def warm_patch_buckets(self, cap_ids: int) -> int:
+        """The sharded mirror of :meth:`ViewPublisher.warm_patch_buckets`:
+        one publish per ladder bucket, each carrying ``b`` ids PER SHARD,
+        keeping the publish COUNT (and so the version sequence) identical
+        to the single plane's ladder."""
+        with self._lock:
+            ids = list(self._ids or [])
+            if not ids:
+                return 0
+            row_of = dict(self._row_of)
+            owned = [
+                [pid for pid in ids
+                 if shard_of_row(row_of[pid], self.n_shards) == d]
+                for d in range(self.n_shards)
+            ]
+            n = len(ids)
+            cap = _pow2_bucket(
+                min(int(cap_ids), max(n, 1)), PATCH_BUCKET_FLOOR
+            )
+            pages = []
+            b = PATCH_BUCKET_FLOOR
+            while b <= cap:
+                page = []
+                for mine in owned:
+                    if mine:
+                        page.extend(mine[i % len(mine)] for i in range(b))
+                rows = np.stack([
+                    self._staging[shard_of_row(row_of[pid], self.n_shards)][
+                        local_of_row(row_of[pid], self.n_shards)
+                    ]
+                    for pid in page
+                ])
+                pages.append((page, rows))
+                b *= 2
+        for page, rows in pages:
+            self.publish_rows(page, rows)
+        return len(pages)
+
+    def cutover_from(self, staging: "ShardedViewPublisher") -> ShardedRatingsView:
+        """The sharded mirror of :meth:`ViewPublisher.cutover_from`: all
+        ``S`` per-shard tables of the staging lineage's latest view are
+        adopted by reference under ONE new version, so a reader can never
+        mix pre- and post-cutover shards. Topologies must match — a
+        cross-shard-count cutover would need a re-split, which is a
+        ``publish_state`` of the migrated table, not a reference swap."""
+        if staging.n_shards != self.n_shards:
+            raise ValueError(
+                f"cannot cut over a {staging.n_shards}-shard staging "
+                f"lineage into a {self.n_shards}-shard live plane; "
+                "publish_state the migrated table instead"
+            )
+        with staging._lock:
+            view = staging._view
+            if view is None:
+                raise ValueError(
+                    "staging lineage has no published view to cut over to"
+                )
+            row_of, ids = staging._row_of, staging._ids
+            bufs, alloc = staging._staging, staging._local_alloc
+            staging._retired = True
+        with self._lock:
+            self._row_of = row_of
+            self._ids = ids
+            self._staging = bufs
+            self._local_alloc = alloc
+            get_registry().counter("serve.view_cutovers_total").add(1)
+            return self._swap(
+                [shard.table for shard in view.shards], view.n_players
+            )
+
+    # -- internals --------------------------------------------------------
+    def _upload(self, d: int, arr: np.ndarray) -> torch.Tensor:
+        """An owning copy of ``arr`` on shard ``d``'s device (``copy=True``:
+        see :meth:`ViewPublisher._upload` on aliasing)."""
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(
+            self.device_of(d), copy=True
+        )
+
+    def _patch_shard(self, d: int, prev_table, local_idx, rows):
+        """One shard's copy-on-write patch (the single plane's
+        :func:`_patch_rows`), the lists at their real lengths."""
+        idx = np.ascontiguousarray(local_idx, np.int64)
+        rows = np.ascontiguousarray(rows, np.float32)
+        _count_publish_bytes(idx.nbytes + rows.nbytes)
+        return _patch_rows(prev_table, self._upload(d, idx),
+                           self._upload(d, rows))
+
+    def _rebuild_shard(self, d: int) -> torch.Tensor:
+        """One shard's owning full-slice upload."""
+        _count_publish_bytes(self._staging[d].nbytes)
+        return self._upload(d, self._staging[d])
+
+    def _grow_local(self, alloc: int) -> None:
+        if alloc <= self._local_alloc:
+            return
+        for d in range(self.n_shards):
+            bigger = np.full((alloc + 1, TABLE_WIDTH), np.nan, np.float32)
+            bigger[: self._staging[d].shape[0] - 1] = self._staging[d][:-1]
+            self._staging[d] = bigger
+        self._local_alloc = alloc
+
+    def _swap(self, tables, n_players: int) -> ShardedRatingsView:
+        """Builds the next version — ALL shards under one number — and swaps
+        the single reference. Caller holds the writer lock."""
+        if self._retired:
+            raise RuntimeError(
+                "publisher was retired by a lineage cutover (its buffers "
+                "now back the live lineage); publish into the live "
+                "publisher instead"
+            )
+        for t in tables:
+            if t.is_cuda:
+                # Every shard's upload or patch finishes before the one
+                # reference becomes visible to readers on other threads.
+                torch.cuda.current_stream(t.device).synchronize()
+        self._version += 1
+        shards = [
+            RatingsView(
+                self._version, t,
+                shard_player_count(n_players, d, self.n_shards), None, None,
+            )
+            for d, t in enumerate(tables)
+        ]
+        view = ShardedRatingsView(
+            self._version, shards, n_players, self._row_of, self._ids
+        )
+        self._view = view
+        self._last_publish = time.monotonic()
+        reg = get_registry()
+        reg.gauge("serve.view_version").set(self._version)
+        reg.gauge("serve.view_age_seconds").set(0.0)
+        reg.gauge("serve.shards").set(self.n_shards)
         reg.counter("serve.view_publishes_total").add(1)
         return view

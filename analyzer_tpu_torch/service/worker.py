@@ -49,7 +49,9 @@ bit-identical with any of them on or off):
     scores each sequentially committed batch's pre-update win
     probabilities against its outcomes.
 
-``serve_shards > 1`` waits for ROADMAP A11b.
+``serve_shards > 1`` serves through the sharded plane
+(``ShardedViewPublisher`` + ``ShardedQueryEngine``, every response equal
+to the single plane's).
 """
 
 from __future__ import annotations
@@ -106,18 +108,6 @@ def _mirrored_counter(attr: str, series: str):
 # inert padding steps out: they would read and write nothing.
 SERVICE_STEP_CHUNK = 8
 
-#: The ROADMAP item ``serve_shards > 1`` waits for.
-A11B = "ROADMAP A11b, the sharded serve plane"
-
-
-def _refuse_shards(serve_shards) -> None:
-    """Raises NotImplementedError for the sharded serve plane."""
-    if serve_shards is not None and serve_shards > 1:
-        raise NotImplementedError(
-            f"Worker(serve_shards={serve_shards}) is not ported yet ({A11B}); "
-            "serve through the single plane (serve_shards=None or 1)"
-        )
-
 
 class Worker:
     # Operator counters: per-worker values whose increments mirror into
@@ -170,7 +160,6 @@ class Worker:
         ``audit`` (None: ``ANALYZER_TPU_AUDIT``) audits 1 in
         ``audit_sample_denom`` served responses (seeded by
         ``audit_seed``) when the SLO plane and the serve plane are on."""
-        _refuse_shards(serve_shards)
         self.device = resolve_device(device)
         self.broker = broker
         self.store = store
@@ -289,14 +278,33 @@ class Worker:
         self.serve_server = None
         if serve_port is not None:
             from analyzer_tpu_torch.obs.httpd import DEFAULT_HOST as LOOPBACK
-            from analyzer_tpu_torch.serve import QueryEngine, ViewPublisher
+            from analyzer_tpu_torch.serve import (
+                QueryEngine,
+                ShardedQueryEngine,
+                ShardedViewPublisher,
+                ViewPublisher,
+            )
             from analyzer_tpu_torch.serve.server import ServeServer
 
-            self.view_publisher = ViewPublisher(device=self.device)
-            self.query_engine = QueryEngine(
-                self.view_publisher, cfg=self.rating_config,
-                device=self.device,
-            ).start()
+            # Topology is a constructor knob, not a caller concern: both
+            # planes satisfy the ServePlane protocol, so everything from
+            # _publish_view to /v1/* is identical either way — and the
+            # served numbers are bit-identical by the sharded engine's
+            # contract.
+            if serve_shards is not None and serve_shards > 1:
+                self.view_publisher = ShardedViewPublisher(
+                    serve_shards, device=self.device
+                )
+                self.query_engine = ShardedQueryEngine(
+                    self.view_publisher, cfg=self.rating_config,
+                    device=self.device,
+                ).start()
+            else:
+                self.view_publisher = ViewPublisher(device=self.device)
+                self.query_engine = QueryEngine(
+                    self.view_publisher, cfg=self.rating_config,
+                    device=self.device,
+                ).start()
             self.serve_server = ServeServer(
                 self.query_engine,
                 port=serve_port,
@@ -1444,8 +1452,8 @@ def main(
     audit of 1 in ``audit_sample_denom`` served queries against the
     bit-exact oracle; ``slo_plane=False`` disables the history sampler +
     SLO watchdog + audit entirely; ``device`` is where batches are rated
-    (None = the card). ``serve_shards > 1`` (ROADMAP A11b) raises
-    NotImplementedError before anything connects."""
+    (None = the card); ``serve_shards`` (or ``ANALYZER_TPU_SERVE_SHARDS``)
+    > 1 serves through the sharded plane."""
     config = ServiceConfig.from_env()
     if obs_port is None and os.environ.get("ANALYZER_TPU_OBS_PORT"):
         obs_port = int(os.environ["ANALYZER_TPU_OBS_PORT"])
@@ -1457,7 +1465,6 @@ def main(
     profile_dir = profile_dir or os.environ.get("ANALYZER_TPU_PROFILE_DIR")
     if audit is None and os.environ.get("ANALYZER_TPU_AUDIT", "") not in ("", "0"):
         audit = True
-    _refuse_shards(serve_shards)
     device = resolve_device(device)
     from analyzer_tpu_torch.service.broker import make_pika_broker
 

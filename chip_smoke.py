@@ -49,6 +49,25 @@ lines:
      its consumer loop split as [main]'s;
   6. stream: ``rate_stream(kernel="fused")`` over the prefix must give the
      prefix's table bit for bit, through the kernel;
+  6a. mesh: ``parallel.rate_history_sharded`` over ``MESH_SHARDS`` logical
+     shards on the card, over the prefix, with a ``ShardedViewPublisher``
+     wired in: the table equals the prefix's bit for bit, the row-scatter
+     kernel launches once a superstep (``mode="drop"``), the ``mesh.*``
+     counters and the consumer loop's split (feed wait, dispatch, publish)
+     are printed; a burst of every query kind from 8 threads through a
+     ``ShardedQueryEngine`` equals a single-plane ``QueryEngine`` and
+     ``serve.oracle``; at D = 1, 2, 8 and through ``rate_stream(mesh=2)``
+     the first 100,000 matches equal ``rate_history(kernel="reference")``
+     bit for bit; ``row_scatter(mode="drop")`` equals its plain version at
+     the run's shapes and is timed (back to back, queued behind a sleep
+     kernel, and a call's host time against the bare launch's);
+     ``cli rate --mesh 0`` in a subprocess
+     joins an NCCL group of world size 1 (COORDINATOR_ADDRESS /
+     NUM_PROCESSES / PROCESS_ID) and writes ``cli rate``'s checkpoint;
+     ``cli serve --shards 4`` on it answers ``/v1/*`` with ``--shards 1``'s
+     bytes; ``cli train --mesh 2`` gives ``cli train``'s weights within
+     ``MESH_TRAIN_ATOL``; one ``BENCH_MESH=2`` bench line at 100,000
+     matches;
   7. tier: the prefix through ``rate_history(kernel="fused",
      hot_rows=262144, view_publisher=pub)`` — a hot set of 17% of the
      players over a pinned host tier — with the kernel's launch count taken
@@ -159,7 +178,7 @@ lines:
      TF32 stays off (printed). The phase's wall is printed;
  14. bench: ``cli bench --kernel fused --hot-rows 32768 --profile`` in a
      subprocess at bench's default workload (500,000 matches, 166,666
-     players, conc 0.8, max share 1e-4), ``BENCH_REPEATS=2``: the BENCH line
+     players, conc 0.8, max share 1e-4), ``BENCH_REPEATS=1``: the BENCH line
      is printed whole, with the fused kernel's launches over the run; it
      must show both bit-identities (fused = reference, tiered = resident),
      a roofline whose device time came from the profile with
@@ -187,7 +206,9 @@ lines:
      [main]'s fused_window by CUDA events x launches beside its profiler
      attribution; one ``{"kernels": [...]}`` line: per kernel its launches on its path
      (the fused window's on the tiered path, the DB lane and the worker
-     phase's ``cli rate --db`` and [bench]'s run beside them), the error
+     phase's ``cli rate --db`` and [bench]'s run beside them; the row
+     scatter's on [mesh]'s sharded re-rate, at its shapes, with the
+     scatter-floor experiment's numbers as ``floor_*``), the error
      against its plain version, its time at its path's shapes beside the
      plain version's, the library call's and the card's bound, and the
      time of its earlier launch pattern measured in this run (the row
@@ -289,10 +310,12 @@ OPS_PER_MATCH = 460
 
 
 # [bench]: cli bench's default workload (500,000 matches), a hot set of
-# 32,768 rows, and two repeats a line to hold the time.
+# 32,768 rows, and one repeat a line after its warmup (two until [mesh]
+# needed the time; [ingest] keeps two).
 BENCH_MATCHES = 500_000
 BENCH_HOT_ROWS = 32_768
-BENCH_REPEATS = 2
+BENCH_REPEATS = 1
+INGEST_REPEATS = 2
 # [oracle]: matches drawn from the first step of each of the first
 # ORACLE_WINDOWS fused windows of a [bench]-sized schedule, held to the
 # 50-digit oracle with tests/test_oracle.py's relative bounds.
@@ -335,6 +358,20 @@ OBSD_ROUTES = (
 )
 # [cli]: the /metrics scrape of a rate run's obsd, 20 Hz.
 SCRAPE_S = 0.05
+# [mesh]: the sharded re-rate's logical shards on the card over the 1M
+# prefix; the other widths, rate_stream(mesh=) and BENCH_MESH's bench line
+# on the first MESH_SMALL_MATCHES matches; the NCCL world-size-1 cli run on
+# the first MESH_NCCL_MATCHES; cli train --mesh 2 on BASELINE.md's
+# card-vs-CPU stream size (20,000 matches / 4,000 players), its weights
+# within MESH_TRAIN_ATOL of a single-device run (float32 reduction order,
+# tests/test_torch_models.py).
+MESH_SHARDS = 4
+MESH_WIDTHS = (1, 2, 8)
+MESH_SMALL_MATCHES = 100_000
+MESH_NCCL_MATCHES = 20_000
+MESH_TRAIN_MATCHES = 20_000
+MESH_TRAIN_PLAYERS = 4_000
+MESH_TRAIN_ATOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -467,10 +504,12 @@ def build_all(builds) -> None:
         log(f"[build] {name}: {secs:.2f} s")
 
 
-def device_ms(fn, calls: int) -> float | None:
+def device_ms(fn, calls: int, kernels: int | None = None) -> float | None:
     """Device time per call of the CUDA kernels ``fn()`` launches, summed
-    from a ``torch.profiler`` trace; None where the trace holds no device
-    events or the profiler fails (the time is then not measured)."""
+    from a ``torch.profiler`` trace and divided by ``calls``; None where the
+    trace holds no device events, holds other than ``kernels`` of them (a
+    partial capture) or the profiler fails (the time is then not
+    measured)."""
     try:
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -485,7 +524,49 @@ def device_ms(fn, calls: int) -> float | None:
     except Exception as e:  # noqa: BLE001 — a diagnostic, reported as not measured
         log(f"[profiler] not measured: {type(e).__name__}: {e}")
         return None
+    if kernels is not None and len(us) != kernels:
+        log(f"[profiler] not measured: the trace holds {len(us)} device events "
+            f"for {kernels} kernel launches")
+        return None
     return sum(us) / calls / 1e3 if us else None
+
+
+def host_ms(fn, reps: int) -> float:
+    """Host time per call of ``fn()`` (no sync inside the loop), after one
+    warm call; the stream is drained before and after."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    out = 1e3 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return out
+
+
+def queued_ms(fn, reps: int) -> float | None:
+    """Device time per call of ``fn()``, by CUDA events, with the host's
+    launch gaps hidden: a sleep kernel holds the stream while the ``reps``
+    calls queue up behind it, so the events time the device's work and its
+    gaps between queued kernels alone. None where queueing outlasted the
+    sleep (the device then waited on the host)."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(50_000_000)  # ~25 ms at 2 GHz
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    ev[2].record()
+    ev[2].synchronize()
+    if ev[0].elapsed_time(ev[1]) <= host_ms:
+        log(f"[queued] not measured: queueing {reps} calls took {host_ms:.3f} ms, "
+            f"the sleep {ev[0].elapsed_time(ev[1]):.3f} ms")
+        return None
+    return ev[1].elapsed_time(ev[2]) / reps
 
 
 def scatter_phase(dev) -> dict:
@@ -535,8 +616,9 @@ def scatter_phase(dev) -> dict:
             lambda: rs.row_scatter_steps_plain(table, idx, rows), 5) / steps
         library_ms = cuda_ms(lambda: sf.run_torch(table, idx64, rows), 5) / steps
         # The same runs' device time alone, without the host's launch gaps.
-        k_dev = device_ms(lambda: sf.run_cuda(table, idx, rows), steps)
-        s_dev = device_ms(lambda: sf.run_steps(sf.scatter_cuda, table, idx, rows), steps)
+        k_dev = device_ms(lambda: sf.run_cuda(table, idx, rows), steps, kernels=1)
+        s_dev = device_ms(lambda: sf.run_steps(sf.scatter_cuda, table, idx, rows), steps,
+                          kernels=steps)
         l_dev = device_ms(lambda: sf.run_torch(table, idx64, rows), steps)
         n_bytes = 2 * sf.R * w * 4 + sf.R * 4  # rows in, rows out, indices in
         bound_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S
@@ -834,6 +916,392 @@ def serve_phase(cfg, pub, final_state, n_players) -> None:
         f"reader, each equal to the oracle at its own version")
     if len(versions) < 2:
         raise AssertionError("the readers never saw a second version")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _cli_popen(*argv, env=None, stderr=subprocess.PIPE) -> subprocess.Popen:
+    """``python -m analyzer_tpu_torch.cli ARGV`` started in the background
+    from the checkout's root, ``env`` added to this process's."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "analyzer_tpu_torch.cli", *argv],
+        stdout=subprocess.PIPE, stderr=stderr, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env={**os.environ, **(env or {})},
+    )
+
+
+def _finish(proc, tag: str, timeout: float = 300) -> tuple[str, str]:
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"{tag} did not finish in {timeout} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag} exited {proc.returncode}: {err[-3000:]}")
+    return out, err
+
+
+def _stats_line(out: str) -> dict:
+    return json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1])
+
+
+def expected_tiers(host, n, version, edges) -> dict:
+    """``serve.oracle.tier_histogram``'s counts, vectorised (float32
+    compares of the oracle's scores), in the engine's response format."""
+    score, rated = conservative(host, n)
+    ge = [int(((score >= np.float32(e)) & rated).sum()) for e in edges]
+    total = int(rated.sum())
+    counts = [total - ge[0]] + [ge[i] - ge[i + 1] for i in range(len(ge) - 1)]
+    return {"version": version, "edges": [float(e) for e in edges],
+            "counts": counts + [ge[-1]], "rated": total}
+
+
+def mesh_serve_check(cfg, pub, final_state) -> None:
+    """[mesh]'s serve half: the ShardedViewPublisher the D-shard run fed,
+    a burst of every query kind from 8 threads through a started
+    ShardedQueryEngine on the card, each response equal to a single-plane
+    QueryEngine's on the same final table (version aside) and to
+    ``serve.oracle`` on the sharded view's host table."""
+    from analyzer_tpu_torch.obs import get_registry
+    from analyzer_tpu_torch.serve import (
+        QueryEngine, ShardedQueryEngine, ViewPublisher, oracle,
+    )
+
+    view = pub.current()
+    host = view.host_table()
+    n, beta2 = view.n_players, cfg.beta2
+    single = ViewPublisher()
+    single.publish_state(final_state)
+    e1 = QueryEngine(single, cfg=cfg)
+    eS = ShardedQueryEngine(pub, cfg=cfg)
+    t0 = time.perf_counter()
+    shapes = eS.warmup(view)
+    e1.warmup()
+    t_warm = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 7)
+    score, rated = conservative(host, n)
+    work = [("ratings", tuple(str(r) for r in rng.integers(0, n, 64)))
+            for _ in range(64)]
+    for _ in range(256):
+        rows = rng.choice(n, size=10, replace=False)
+        work.append(("winprob", (tuple(str(r) for r in rows[:5]),
+                                 tuple(str(r) for r in rows[5:]))))
+    work += [("leaderboard", k) for k in (10, 100, 1000)]
+    work += [("tiers", None)] * 4
+    values = np.concatenate([rng.uniform(-2500, 2500, 48),
+                             score[rated][rng.integers(0, int(rated.sum()), 16)]])
+    work += [("percentile", float(v)) for v in values]
+    order = rng.permutation(len(work))
+    eS.start()
+    done: list = [None] * 8
+
+    def client(i):
+        mine = [work[j] for j in order[i::8]]
+        reqs = [eS.submit(kind, payload) for kind, payload in mine]
+        for r in reqs:
+            r.result(timeout=120)
+        done[i] = reqs
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    eS.close()
+    if any(d is None for d in done):
+        raise AssertionError("[mesh]: a client thread of the sharded burst failed")
+    reqs = [r for d in done for r in d]
+    # The vectorised tier replay against the oracle's loop on a slice.
+    cut = 20_000
+    small = expected_tiers(host, cut, 0, eS.tier_edges)
+    if (small["counts"], small["rated"]) != oracle.tier_histogram(host, cut, eS.tier_edges):
+        raise AssertionError("[mesh]: the vectorised tier replay differs from the oracle")
+    for r in reqs:
+        got, v = r.value, view.version
+        single_resp = {**e1.query_now(r.kind, r.payload), "version": v}
+        if r.kind == "ratings":
+            want = expected_ratings(oracle, host, v, r.payload)
+        elif r.kind == "winprob":
+            want = expected_winprob(oracle, host, v, *r.payload, beta2)
+        elif r.kind == "leaderboard":
+            want = {"version": v, "leaders": expected_leaders(host, n, r.payload)}
+        elif r.kind == "tiers":
+            want = expected_tiers(host, n, v, eS.tier_edges)
+        else:
+            want = expected_percentile(host, n, v, r.payload)
+        if got != single_resp or got != want:
+            raise AssertionError(f"[mesh] sharded {r.kind} {r.payload!r}: served {got}, "
+                                 f"single plane {single_resp}, oracle {want}")
+    reg = get_registry().snapshot()["counters"]
+    per_shard = {k: int(v) for k, v in reg.items()
+                 if k.startswith("serve.shard.queries_total{")}
+    log(f"[mesh] ShardedQueryEngine over the {view.n_shards}-shard view (version "
+        f"{view.version}, {view.shards[0].table.shape[0]} local rows a shard on "
+        f"{view.shards[0].table.device}; warmup {shapes} functions, {t_warm:.2f} s): "
+        f"{len(reqs)} requests of every kind from 8 threads in {wall:.3f} s "
+        f"({len(reqs) / wall:,.0f} requests/s), every response equal to the "
+        f"single-plane QueryEngine's on the same final table and to serve.oracle "
+        f"on the sharded host table; routed per-shard queries {per_shard}, "
+        f"merges {int(reg['serve.shard.merges_total'])}")
+
+
+def mesh_phase(dev, cfg, state0, stream, pre, pre_sched, a_pre, tmp) -> dict:
+    """Phase [mesh]: the sharded re-rate (``parallel/``) on the card,
+    ``MESH_SHARDS`` logical shards over the 1M prefix with the sharded serve
+    plane wired in (bit for bit [prefix]'s table, one ``row_scatter`` launch
+    a superstep), the other widths and ``rate_stream(mesh=)`` against the
+    reference runner, the drop-mode kernel against its plain version at the
+    run's shapes, an NCCL group of world size 1 under ``cli rate --mesh 0``,
+    ``cli serve --shards``, ``cli train --mesh`` and the BENCH_MESH line.
+    Returns the row scatter's numbers for the kernels line."""
+    from analyzer_tpu_torch.io.checkpoint import load_checkpoint
+    from analyzer_tpu_torch.io.csv_codec import save_stream_npz
+    from analyzer_tpu_torch.io.synthetic import synthetic_players, synthetic_stream
+    from analyzer_tpu_torch.kernels import row_scatter as rs
+    from analyzer_tpu_torch.obs import get_registry, reset_registry, reset_tracer
+    from analyzer_tpu_torch.parallel import make_mesh, rate_history_sharded
+    from analyzer_tpu_torch.parallel.mesh import ShardedRun
+    from analyzer_tpu_torch.sched import pack_schedule, rate_history, rate_stream
+    from analyzer_tpu_torch.serve import ShardedViewPublisher
+
+    t_phase = time.perf_counter()
+    # The NCCL run and its single-device twin start first and run beside
+    # the in-process work.
+    small_path = os.path.join(tmp, "mesh_small.npz")
+    save_stream_npz(small_path, pre.slice(0, MESH_NCCL_MATCHES))
+    ck_mesh, ck_one = os.path.join(tmp, "mesh0.npz"), os.path.join(tmp, "one.npz")
+    nccl = _cli_popen("rate", "--csv", small_path, "--checkpoint", ck_mesh,
+                      "--mesh", "0", env={
+                          "COORDINATOR_ADDRESS": f"127.0.0.1:{_free_port()}",
+                          "NUM_PROCESSES": "1", "PROCESS_ID": "0"})
+    plain = _cli_popen("rate", "--csv", small_path, "--checkpoint", ck_one)
+    # cli train --mesh 2 and cli train too: their features passes are the
+    # phase's longest wait, and they move no number of the runs below.
+    t_stream = synthetic_stream(MESH_TRAIN_MATCHES,
+                                synthetic_players(MESH_TRAIN_PLAYERS, seed=7), seed=7)
+    t_path = os.path.join(tmp, "train.npz")
+    save_stream_npz(t_path, t_stream)
+    w = [os.path.join(tmp, f"w{i}.npz") for i in range(2)]
+    trains = [_cli_popen("train", "--csv", t_path, "--model", "logistic", "--out", w[i],
+                         *extra) for i, extra in enumerate(((), ("--mesh", "2")))]
+
+    # -- D shards over the 1M prefix, the sharded serve plane wired in --
+    mesh = make_mesh(MESH_SHARDS)
+    pub = ShardedViewPublisher(MESH_SHARDS)
+    reset_registry()
+    tracer = reset_tracer()
+    counters0 = feed_counters()
+    rs.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u0 = tracer_us(tracer)
+    final = rate_history_sharded(state0, pre_sched, cfg, mesh=mesh, view_publisher=pub)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    u1 = tracer_us(tracer)
+    launches = rs.launches
+    same = np.array_equal(final.table.cpu().numpy(), a_pre, equal_nan=True)
+    c = get_registry().snapshot()["counters"]
+    log(f"[mesh] rate_history_sharded over {MESH_SHARDS} shards on {mesh.device}, the "
+        f"first {pre.n_matches} matches / {state0.n_players} players: wall "
+        f"{t_run:.3f} s, {pre_sched.n_steps} steps x B={pre_sched.batch_size} "
+        f"({1e3 * t_run / pre_sched.n_steps:.3f} ms a superstep); row_scatter "
+        f"launches {launches}; mesh.puts_total {int(c['mesh.puts_total'])}, "
+        f"mesh.put_bytes_total {int(c['mesh.put_bytes_total'])}, "
+        f"mesh.writebacks_avoidable_total {int(c['mesh.writebacks_avoidable_total'])}; "
+        f"views published {pub.version}; table bit-identical to [prefix]'s: {same}")
+    if launches != pre_sched.n_steps:
+        raise AssertionError(f"[mesh]: {launches} row_scatter launches for "
+                             f"{pre_sched.n_steps} supersteps")
+    if not same:
+        raise AssertionError("[mesh]: the sharded table differs from [prefix]'s")
+    log(runner_split("[mesh]", tracer, u0, u1, counters0, hooks=("view.publish",)))
+    mesh_serve_check(cfg, pub, final)
+    del final, pub
+
+    # -- the other widths and rate_stream(mesh=) on the first 100,000 --
+    small = stream.slice(0, min(MESH_SMALL_MATCHES, stream.n_matches))
+    s_sched = pack_schedule(small, pad_row=state0.pad_row, windowed=True)
+    t0 = time.perf_counter()
+    ref, _ = rate_history(state0, s_sched, cfg, kernel="reference")
+    torch.cuda.synchronize()
+    walls = [f"reference {time.perf_counter() - t0:.3f} s"]
+    a_ref = ref.table.cpu().numpy()
+    del ref
+    for d in MESH_WIDTHS:
+        rs.launches = 0
+        t0 = time.perf_counter()
+        st = rate_history_sharded(state0, s_sched, cfg, mesh=make_mesh(d))
+        torch.cuda.synchronize()
+        walls.append(f"D={d} {time.perf_counter() - t0:.3f} s")
+        if not np.array_equal(st.table.cpu().numpy(), a_ref, equal_nan=True):
+            raise AssertionError(f"[mesh]: D={d} differs from the reference runner")
+        if rs.launches != s_sched.n_steps:
+            raise AssertionError(f"[mesh]: D={d} launched row_scatter {rs.launches} "
+                                 f"times for {s_sched.n_steps} steps")
+        del st
+    rs.launches = 0
+    s_stats: dict = {}
+    t0 = time.perf_counter()
+    st, _ = rate_stream(state0, small, cfg, mesh=make_mesh(2), stats_out=s_stats)
+    torch.cuda.synchronize()
+    walls.append(f"rate_stream(mesh=2) {time.perf_counter() - t0:.3f} s "
+                 f"({s_stats['n_steps']} steps x B={s_stats['batch_size']})")
+    if not np.array_equal(st.table.cpu().numpy(), a_ref, equal_nan=True) \
+            or rs.launches != s_stats["n_steps"]:
+        raise AssertionError("[mesh]: rate_stream(mesh=2) differs from the reference runner")
+    del st, a_ref
+    log(f"[mesh] first {small.n_matches} matches ({s_sched.n_steps} steps x "
+        f"B={s_sched.batch_size}): D = {', '.join(map(str, MESH_WIDTHS))} and "
+        f"rate_stream(mesh=2) bit-identical to rate_history(kernel='reference'), "
+        f"one row_scatter launch a superstep; walls {'; '.join(walls)}")
+
+    # -- the kernel at the D-shard run's shapes, against its plain version --
+    run = ShardedRun(state0, cfg, mesh)
+    slab, _ = run.stage(*pre_sched.host_window(0, 16))
+    _p, _w, _m, _a, _sel, target = slab.to_device(dev)
+    idx = target[0].contiguous()
+    r = idx.numel()
+    rows = torch.rand((r, state0.table.shape[1]),
+                      generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    block = run._block
+    got = rs.row_scatter(block.clone(), idx, rows, check=True, mode="drop")
+    want = rs.row_scatter_plain(block.clone(), idx, rows, mode="drop")
+    torch.cuda.synchronize()
+    # The block holds never-rated rows (NaN): compared bit for bit, NaN
+    # pattern included.
+    max_abs = float(np.nanmax(np.abs(got.cpu().numpy() - want.cpu().numpy())))
+    if not same_bits(got, want):
+        raise AssertionError(f"[mesh]: row_scatter(mode='drop') differs from its plain "
+                             f"version (max abs {max_abs})")
+    del got, want
+    keep = (idx >= 0) & (idx < block.shape[0])
+    n_kept = int(keep.sum())
+    kept_idx, kept_rows = idx[keep].long(), rows[keep]
+    table = block.clone()
+    ms = cuda_ms(lambda: rs.row_scatter(table, idx, rows, mode="drop"), 50)
+    plain_ms = cuda_ms(lambda: rs.row_scatter_plain(table, idx, rows, mode="drop"), 50)
+    library_ms = cuda_ms(lambda: table.index_copy_(0, kept_idx, kept_rows), 50)
+    k_dev = device_ms(lambda: [rs.row_scatter(table, idx, rows, mode="drop")
+                               for _ in range(20)], 20, kernels=20)
+    k_queued = queued_ms(lambda: rs.row_scatter(table, idx, rows, mode="drop"), 20)
+    l_queued = queued_ms(lambda: table.index_copy_(0, kept_idx, kept_rows), 20)
+    # Where a launch's host time goes: the whole wrapper, against the bare
+    # ctypes launch with the same arguments (no checks, no stream lookup).
+    lib, stream = rs.load(), torch.cuda.current_stream(dev).cuda_stream
+    blocks = min(-(-r * (rows.shape[1] // 4) // rs.THREADS), rs.max_resident_blocks(dev))
+    args = (table.data_ptr(), idx.data_ptr(), rows.data_ptr(), 1, r, rows.shape[1],
+            blocks, dev.index or 0, stream, table.shape[0], 1)
+
+
+    def bare_launch():
+        if lib.row_scatter_launch(*args) != 0:
+            raise RuntimeError("[mesh]: the bare row_scatter launch failed")
+
+    wrapper_host_ms = host_ms(lambda: rs.row_scatter(table, idx, rows, mode="drop"), 200)
+    launch_host_ms = host_ms(bare_launch, 200)
+    n_bytes = 2 * n_kept * rows.shape[1] * 4 + r * 4
+    bound_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S
+    log(f"[mesh] row_scatter(mode='drop') at the {MESH_SHARDS}-shard step's shapes "
+        f"(R = {mesh.n_local} shards x K {r // mesh.n_local} = {r} rows, {n_kept} kept, "
+        f"into a [{block.shape[0]}, {block.shape[1]}] block): bit-identical to its "
+        f"plain version (masked index_copy_); a launch back to back (events): "
+        f"{ms:.5f} ms, plain {plain_ms:.5f} ms, index_copy_ of the kept rows "
+        f"{library_ms:.5f} ms; device time a launch queued behind a sleep (events): "
+        f"row_scatter {k_queued} ms, index_copy_ {l_queued} ms; profiler {k_dev} ms; "
+        f"host time a call: the wrapper {wrapper_host_ms:.5f} ms, the bare cooperative "
+        f"launch {launch_host_ms:.5f} ms; bound {bound_ms:.6f} ms (bytes, {n_bytes} B)")
+    del table, block, run, slab, target, idx, rows
+
+    # -- NCCL at world size 1: cli rate --mesh 0 against cli rate --
+    out, err = _finish(nccl, "cli rate --mesh 0 (NCCL)")
+    out1, _ = _finish(plain, "cli rate")
+    got_s, want_s = _stats_line(out), _stats_line(out1)
+    joined = [ln for ln in err.splitlines() if ln.startswith("rate --mesh: joined")]
+    if not joined or "nccl" not in joined[-1]:
+        raise AssertionError(f"[mesh]: cli rate --mesh 0 joined no NCCL group: {err[-2000:]}")
+    a = load_checkpoint(ck_mesh, device="cpu").state.table.numpy()
+    b = load_checkpoint(ck_one, device="cpu").state.table.numpy()
+    same = np.array_equal(a, b, equal_nan=True)
+    log(f"[mesh] cli rate --mesh 0 with COORDINATOR_ADDRESS / NUM_PROCESSES=1 / "
+        f"PROCESS_ID=0 on the first {MESH_NCCL_MATCHES} matches: '{joined[-1]}'; "
+        f"mesh_devices {got_s['mesh_devices']}, processes {got_s['processes']}, "
+        f"rate phase {got_s['phases']['rate']} s (cli rate {want_s['phases']['rate']} s); "
+        f"checkpoint bit-identical to cli rate's: {same}")
+    if not same or (got_s["players_rated"], got_s["mean_mu"]) != (
+            want_s["players_rated"], want_s["mean_mu"]):
+        raise AssertionError("[mesh]: the NCCL cli rate --mesh 0 run differs from cli rate")
+
+    # -- cli serve --shards 4 against --shards 1 on that checkpoint --
+    import signal
+    import urllib.request
+
+    errs = [open(os.path.join(tmp, f"serve{i}.err"), "w") for i in range(2)]
+    procs = [_cli_popen("serve", "--checkpoint", ck_mesh, "--port", "0",
+                        "--max-seconds", "240", *extra, stderr=errs[i])
+             for i, extra in enumerate((("--shards", str(MESH_SHARDS)), ()))]
+    try:
+        urls = []
+        for proc in procs:
+            line = ""
+            while not line.startswith('{"serving"'):
+                line = proc.stdout.readline()
+                if not line:
+                    raise AssertionError(f"[mesh]: cli serve exited {proc.wait()}")
+            urls.append(json.loads(line)["serving"])
+        paths = ("/v1/ratings?ids=0,1,2,17,999999999,x", "/v1/leaderboard?k=100",
+                 "/v1/winprob?a=0,1,2&b=3,4", "/v1/tiers", "/v1/tiers?score=250.5")
+        bodies = [[urllib.request.urlopen(u + q, timeout=30).read() for q in paths]
+                  for u in urls]
+        if bodies[0] != bodies[1]:
+            raise AssertionError("[mesh]: cli serve --shards differs from --shards 1")
+        log(f"[mesh] cli serve --shards {MESH_SHARDS} on that checkpoint: "
+            f"{len(paths)} /v1/* bodies byte-equal to cli serve --shards 1's")
+    finally:
+        for proc, f in zip(procs, errs):
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+            proc.stderr is None or proc.stderr.close()
+            f.close()
+    j1, j2 = (_stats_line(_finish(t, "cli train")[0]) for t in trains)
+    with np.load(w[0]) as f1, np.load(w[1]) as f2:
+        diff = max(float(np.abs(f1[k] - f2[k]).max()) for k in ("w", "b"))
+    log(f"[mesh] cli train --mesh 2 against cli train on {MESH_TRAIN_MATCHES} matches "
+        f"(subprocesses): weights max abs difference {diff:.3e} (tol "
+        f"{MESH_TRAIN_ATOL:g}), train_nll {j2['train_nll']} / {j1['train_nll']}, "
+        f"phases {j2['phases']} / {j1['phases']}")
+    if diff > MESH_TRAIN_ATOL:
+        raise AssertionError(f"[mesh]: train --mesh 2 weights differ by {diff}")
+
+    # -- one BENCH_MESH line --
+    proc = _cli_popen("bench", env={"BENCH_MESH": "2", "BENCH_MATCHES": str(MESH_SMALL_MATCHES),
+                                    "BENCH_REPEATS": "1"})
+    out, _err = _finish(proc, "cli bench (BENCH_MESH=2)", timeout=600)
+    line = _stats_line(out)
+    log(f"[mesh] BENCH_MESH=2 BENCH_MATCHES={MESH_SMALL_MATCHES} bench line: "
+        f"{json.dumps(line)}")
+    log(f"[mesh] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
+            "device_ms": k_dev, "queued_ms": k_queued, "library_queued_ms": l_queued,
+            "wrapper_host_ms": wrapper_host_ms, "launch_host_ms": launch_host_ms,
+            "rows": r, "rows_kept": n_kept,
+            "ms_per_superstep": 1e3 * t_run / pre_sched.n_steps}
 
 
 def http_phase(cli, dev, cfg, ck_path: str) -> None:
@@ -1163,16 +1631,17 @@ def check_sum(tag: str, parts: dict, wall: float) -> float:
     return share
 
 
-def runner_split(tag: str, tracer, t0: float, t1: float, counters0: dict) -> str:
+def runner_split(tag: str, tracer, t0: float, t1: float, counters0: dict,
+                 hooks: tuple = ()) -> str:
     """One line splitting a runner's consumer loop — the ``rate_history`` /
     ``rate_stream`` call between tracer times ``t0`` and ``t1``, on this
     thread — into feed wait (the gaps between its spans: waiting on the
     feed for a staged chunk), dispatch (``batch.compute`` and the
     consumer's ``feed.transfer``, the slab's copy to the card), fetch
-    (``batch.fetch``) and hooks (publish and checkpoint: none on the runs
-    this is called for). Fails unless they account for the wall within
-    ``SPLIT_TOL``. Adds the producer thread's staging totals and the
-    feed's counters over the run."""
+    (``batch.fetch``) and hooks (the spans named in ``hooks``: a view
+    publish; none on most runs this is called for). Fails unless they
+    account for the wall within ``SPLIT_TOL``. Adds the producer thread's
+    staging totals and the feed's counters over the run."""
     from analyzer_tpu_torch.obs import get_registry
 
     me = threading.get_ident() % 1_000_000
@@ -1180,10 +1649,11 @@ def runner_split(tag: str, tracer, t0: float, t1: float, counters0: dict) -> str
     transfer = spans_on(evs, me, {"feed.transfer"}, t0, t1)
     compute = spans_on(evs, me, {"batch.compute"}, t0, t1)
     fetch = spans_on(evs, me, {"batch.fetch"}, t0, t1)
-    wait, tail = gap_s(transfer + compute + fetch, t0, t1)
+    hook = spans_on(evs, me, set(hooks), t0, t1)
+    wait, tail = gap_s(transfer + compute + fetch + hook, t0, t1)
     wall = (t1 - t0) / 1e6
     parts = {"feed wait": wait, "dispatch": busy_s(transfer + compute),
-             "fetch": busy_s(fetch), "hooks": 0.0}
+             "fetch": busy_s(fetch), "hooks": busy_s(hook)}
     share = check_sum(tag, parts, wall)
     producer = [e for e in evs if e.get("ph") == "X" and e["tid"] != me
                 and t0 <= e["ts"] <= t1]
@@ -1196,7 +1666,8 @@ def runner_split(tag: str, tracer, t0: float, t1: float, counters0: dict) -> str
         f"feed wait {wait:.3f} s (feed.starved_total {starved}), dispatch "
         f"{parts['dispatch']:.3f} s (batch.compute {busy_s(compute):.3f}, "
         f"feed.transfer on the consumer {busy_s(transfer):.3f}), fetch "
-        f"{parts['fetch']:.3f} s, hooks 0 s (none on this run); parts = "
+        f"{parts['fetch']:.3f} s, hooks {parts['hooks']:.3f} s"
+        f"{' (' + ', '.join(hooks) + f', {len(hook)} spans)' if hooks else ' (none on this run)'}; parts = "
         f"{100 * share:.2f}% of the wall (after the last span {tail:.3f} s); "
         f"producer thread: feed.materialize "
         f"{busy_s([e for e in producer if e['name'] == 'feed.materialize']):.3f} s, "
@@ -1781,7 +2252,8 @@ def planes_phase(cli, dev, paths: dict, all_ids: list, flight_dir: str) -> None:
 def bench_phase(n_matches: int) -> dict:
     """Phase [bench]: ``cli bench --kernel fused --hot-rows 32768 --profile``
     in a subprocess at bench's default workload (``n_matches`` matches,
-    a third as many players, conc 0.8, max share 1e-4), two repeats a line.
+    a third as many players, conc 0.8, max share 1e-4), ``BENCH_REPEATS``
+    repeats a line.
     Its BENCH line must carry both bit-identities, a roofline from the
     profile with ``fused_window`` the dominant kernel, and the ratios the
     line exists for."""
@@ -1846,7 +2318,7 @@ def ingest_phase(tmp: str, dev, pre) -> None:
     m_json = os.path.join(tmp, "ingest_metrics.json")
     line, _counts, wall = counted_cli(
         "bench", "--ingest", "--metrics-out", m_json,
-        env={"BENCH_REPEATS": str(BENCH_REPEATS)},
+        env={"BENCH_REPEATS": str(INGEST_REPEATS)},
     )
     with open(m_json) as f:
         fallbacks = json.load(f)["counters"]["ingest.fallbacks_total"]
@@ -2553,6 +3025,13 @@ def main(argv=None) -> int:
     if not same:
         raise AssertionError("rate_stream's table differs from rate_history's")
 
+    # -- 6a. the data-parallel mesh and the sharded serve plane -------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        mesh_counts = mesh_phase(dev, cfg, state0, stream, pre, pre_sched, a_pre, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
     # -- 7. the tiered table ---------------------------------------------------
     full = args.players >= N_PLAYERS
     tier_hot = TIER_HOT_ROWS if full else TIER_HOT_ROWS // 8
@@ -2791,11 +3270,15 @@ def main(argv=None) -> int:
             "intercept_ms": slope["intercept_ms"],
         },
         {
+            # On the sharded re-rate's path ([mesh], mode="drop", one launch
+            # a superstep), at its shapes; the scatter-floor experiment's
+            # numbers under floor_*.
             "name": "row_scatter",
             "route": "cuda",
             "source": "analyzer_tpu_torch/kernels/csrc/row_scatter.cu",
             "replaces": "experiments/scatter_floor.py:90",
-            **scatter,
+            **mesh_counts,
+            **{f"floor_{k}": v for k, v in scatter.items()},
         },
     ]}))
     log(smi_line())

@@ -283,6 +283,84 @@ def test_final_table_matches_jax_rate_history(captures):
     np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)
 
 
+# -- BENCH_MESH ------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def mesh_captures():
+    from analyzer_tpu import obs as jobs
+    from analyzer_tpu_torch import obs
+
+    knobs = dict(BENCH_MATCHES=N_MATCHES, BENCH_REPEATS=1, BENCH_MESH=2)
+    box = {}
+    orig = bench.main
+
+    def spy(**kw):
+        box["result"] = orig(**kw)
+        return box["result"]
+
+    obs.reset_registry()
+    jobs.reset_registry()
+    out, err = io.StringIO(), io.StringIO()
+    with _env(**knobs), contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(err):
+        bench.main = spy
+        try:
+            rc = cli.main(["bench", "--device", "cpu"])
+        finally:
+            bench.main = orig
+    jout = io.StringIO()
+    with _env(**knobs), contextlib.redirect_stdout(jout), \
+            contextlib.redirect_stderr(io.StringIO()):
+        jbench.main()
+    return {
+        "rc": rc, "line": _last_json(out.getvalue()), "stderr": err.getvalue(),
+        "table": box["result"]["table"], "jax": _last_json(jout.getvalue()),
+    }
+
+
+def test_bench_mesh_line_keys_equal_jax(mesh_captures):
+    """``BENCH_MESH=2`` runs the sharded capture: the JAX line's keys (plus
+    ``device``), the same mesh put volume, and the same streamed feed."""
+    assert mesh_captures["rc"] == 0
+    line, jax = mesh_captures["line"], mesh_captures["jax"]
+    got = _keys(line) - {("device",), ("device", "name"), ("device", "power_limit")}
+    assert got == _keys(jax)
+    assert (line["telemetry"]["mesh_put_bytes_total"]
+            == jax["telemetry"]["mesh_put_bytes_total"] > 0)
+    assert "eager precomputed-routing control" in mesh_captures["stderr"]
+    assert "over 2 shards" in mesh_captures["stderr"]
+
+
+def test_bench_mesh_rate_is_per_device(mesh_captures):
+    """Two logical shards share the one device, so the line's
+    ``matches_per_sec_per_chip`` is the whole run's rate, not half of it."""
+    line = mesh_captures["line"]
+    best = min(line["capture"]["repeats_s"])
+    assert line["metric"] == "matches_per_sec_per_chip"
+    assert line["value"] * best == pytest.approx(
+        N_MATCHES, rel=0.0005 / best + 0.01
+    )
+
+
+def test_bench_mesh_table_equals_the_reference_run(mesh_captures):
+    from analyzer_tpu_torch.config import RatingConfig
+    from analyzer_tpu_torch.core.state import PlayerState
+    from analyzer_tpu_torch.io.synthetic import synthetic_players, synthetic_stream
+    from analyzer_tpu_torch.sched import pack_schedule, rate_history
+
+    players = synthetic_players(N_MATCHES // 3, seed=42)
+    stream = synthetic_stream(N_MATCHES, players, seed=42, activity_concentration=0.8,
+                              max_activity_share=1e-4)
+    state = PlayerState.create(
+        N_MATCHES // 3, players.rank_points_ranked, players.rank_points_blitz,
+        players.skill_tier, device="cpu",
+    )
+    want, _ = rate_history(state, pack_schedule(stream, pad_row=state.pad_row),
+                           RatingConfig())
+    assert np.array_equal(mesh_captures["table"], want.table.numpy(), equal_nan=True)
+
+
 # -- --ingest -------------------------------------------------------------------
 
 
@@ -319,18 +397,19 @@ def test_ingest_line_on_cpu_keys_equal_jax():
 
 @pytest.mark.parametrize("argv,env,item", [
     (["--obs-port", "0", "--migrate"], {}, "ROADMAP A13"),
-    ([], {"BENCH_OBS_PORT": "9100", "BENCH_MESH": "2"}, "ROADMAP A14"),
+    ([], {"BENCH_OBS_PORT": "9100", "BENCH_MIGRATE": "1"}, "ROADMAP A13"),
     (["--migrate"], {}, "ROADMAP A13"),
     ([], {"BENCH_MIGRATE": "1"}, "ROADMAP A13"),
-    ([], {"BENCH_MESH": "1"}, "ROADMAP A14"),
-    ([], {"BENCH_MESH": "4"}, "ROADMAP A14"),
+    (["--migrate"], {"BENCH_MESH": "1"}, "ROADMAP A13"),
+    ([], {"BENCH_MESH": "4", "BENCH_MIGRATE": "1"}, "ROADMAP A13"),
     ([], {"BENCH_WATCHDOG_OVERHEAD": "1", "BENCH_MIGRATE": "1"}, "ROADMAP A13"),
-    ([], {"BENCH_FEDERATE_OVERHEAD": "yes", "BENCH_MESH": "1"}, "ROADMAP A14"),
+    (["--migrate"], {"BENCH_FEDERATE_OVERHEAD": "yes", "BENCH_MESH": "1"},
+     "ROADMAP A13"),
 ])
 def test_refusals_exit_2_naming_the_item(argv, env, item, capsys):
-    """The refused items exit 2 before anything runs; ``--obs-port`` /
-    ``BENCH_OBS_PORT`` and the overhead knobs are ported and never the
-    reason."""
+    """The refused item (``--migrate``, ROADMAP A13) exits 2 before
+    anything runs; ``--obs-port`` / ``BENCH_OBS_PORT``, the overhead knobs
+    and ``BENCH_MESH`` (ported) are never the reason."""
     with _env(**env):
         rc = cli.main(["bench", "--device", "cpu", *argv])
         leaked = {k for k in os.environ if k.startswith("BENCH_")} - set(env)

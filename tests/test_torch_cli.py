@@ -41,6 +41,9 @@ from analyzer_tpu_torch.sched import MatchStream
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STREAM_FIELDS = ("player_idx", "winner", "mode_id", "afk")
 RTOL, ATOL = 2e-6, 2e-3
+#: ``train --mesh`` against ``train``: the same Adam steps on gradients
+#: reduced in another float32 order (tests/test_torch_models.py).
+MESH_ATOL = 1e-5
 
 
 def _stream(n=300, p=50, seed=1, **kw):
@@ -332,6 +335,74 @@ class TestRate:
         assert "CUDA" in proc.stderr and '"players_rated"' not in proc.stdout
 
 
+class TestRateMesh:
+    """``rate --mesh N`` on the CPU: the stats line has the JAX CLI's keys
+    (``mesh_devices``, ``processes``) and integer stats, and the table
+    equals ``rate``'s bit for bit (the mesh packs at a multiple of
+    lcm(8, N); a re-rate's table does not depend on the batch width)."""
+
+    @pytest.mark.parametrize("extra", [(), ("--checkpoint", "ck.npz")],
+                             ids=["streamed", "packed"])
+    @pytest.mark.parametrize("n", ["1", "2", "4"])
+    def test_equals_rate_and_jax_keys(self, tmp_path, capsys, extra, n):
+        csv = _write(tmp_path, afk_rate=0.1, seed=3)
+        ck_path = str(tmp_path / "ck.npz")
+        extra = tuple(ck_path if a == "ck.npz" else a for a in extra)
+        want = _run(capsys, "rate", "--csv", csv, *extra)
+        want_table = ck.load_checkpoint(ck_path, device="cpu").state.table if extra else None
+        got = _run(capsys, "rate", "--csv", csv, "--mesh", n, *extra)
+        assert (got["mesh_devices"], got["processes"]) == (int(n), 1)
+        for key in ("matches", "players_rated", "mean_mu"):
+            assert got[key] == want[key], key
+        if extra:
+            table = ck.load_checkpoint(ck_path, device="cpu").state.table
+            assert np.array_equal(table.numpy(), want_table.numpy(), equal_nan=True)
+        jextra = tuple(str(tmp_path / "jck.npz") if a == ck_path else a for a in extra)
+        theirs = _run_jax(capsys, "rate", "--csv", csv, "--mesh", n, *jextra)
+        assert set(got) == set(theirs)
+        for key in ("matches", "players_rated", "supersteps", "occupancy",
+                    "mesh_devices", "processes"):
+            assert got[key] == theirs[key], key
+
+    def test_kill_and_resume_under_mesh_equals_one_shot(self, tmp_path, capsys):
+        csv = _write(tmp_path)
+        full, part = str(tmp_path / "full.npz"), str(tmp_path / "part.npz")
+        _run(capsys, "rate", "--csv", csv, "--checkpoint", full, "--mesh", "2")
+        _run(capsys, "rate", "--csv", csv, "--checkpoint", part, "--mesh", "2",
+             "--checkpoint-every", "3", "--stop-after-steps", "6")
+        mid = ck.load_checkpoint(part, device="cpu")
+        assert mid.step_cursor >= 6 and mid.schedule_fingerprint
+        _run(capsys, "rate", "--csv", csv, "--checkpoint", part, "--resume",
+             "--mesh", "2")
+        a = ck.load_checkpoint(full, device="cpu")
+        b = ck.load_checkpoint(part, device="cpu")
+        assert (b.cursor, b.step_cursor) == (300, 0)
+        assert np.array_equal(a.state.table.numpy(), b.state.table.numpy(),
+                              equal_nan=True)
+
+    def test_mid_schedule_resume_on_another_mesh_is_refused_as_jax(self, tmp_path,
+                                                                  capsys):
+        """The mesh's batch width follows its size (a multiple of lcm(8, D)),
+        so a mid-schedule checkpoint belongs to its mesh size; the JAX
+        CLI's text."""
+        csv = _write(tmp_path, n=400, p=60)
+        path = str(tmp_path / "ck.npz")
+        _run(capsys, "rate", "--csv", csv, "--checkpoint", path, "--mesh", "2",
+             "--checkpoint-every", "2", "--stop-after-steps", "4")
+        other = _write(tmp_path, name="o.csv", n=400, p=60, seed=9)
+        rc = main(["rate", "--csv", other, "--checkpoint", path, "--resume",
+                   "--mesh", "2", "--device", "cpu"])
+        ours = capsys.readouterr().err.strip()
+        assert rc == 2 and "mesh size changed" in ours
+        jpath = str(tmp_path / "jck.npz")
+        assert jax_main(["rate", "--csv", csv, "--checkpoint", jpath, "--mesh", "2",
+                         "--checkpoint-every", "2", "--stop-after-steps", "4"]) == 0
+        capsys.readouterr()
+        assert jax_main(["rate", "--csv", other, "--checkpoint", jpath, "--resume",
+                         "--mesh", "2"]) == 2
+        assert capsys.readouterr().err.strip() == ours
+
+
 class TestHotRows:
     @pytest.mark.parametrize("extra", [(), ("--checkpoint", "ck.npz")],
                              ids=["streamed", "packed"])
@@ -501,8 +572,9 @@ class TestServeAndQuery:
         (("--checkpoint", "a.npz", "--db", "sqlite:///x.db"),
          "exactly one of --checkpoint / --db is required"),
         (("--checkpoint", "a.npz", "--shards", "0"), "--shards must be >= 1"),
-        (("--db", "sqlite:///x.db", "--shards", "2"), "ROADMAP A11b"),
-        (("--checkpoint", "a.npz", "--shards", "2"), "ROADMAP A11b"),
+        (("--db", "sqlite:///x.db", "--shards", "-2"), "--shards must be >= 1"),
+        (("--shards", "2", "--all-gather-topk"),
+         "exactly one of --checkpoint / --db is required"),
     ])
     def test_serve_refusals(self, capsys, argv, text):
         assert main(["serve", *argv, "--device", "cpu"]) == 2
@@ -680,10 +752,28 @@ class TestModelsCli:
         assert "synth --telemetry" in ours
 
     def test_mesh_exits_2_naming_a14_after_jax_checks(self, tmp_path, capsys):
+        """``train --mesh`` is ported: ``--mesh 2`` trains data-parallel
+        and its weights and metrics equal ``--mesh`` unset within
+        ``MESH_ATOL`` (float32 reduction order); JAX's flag checks still
+        come first, with their texts."""
+        from analyzer_tpu_torch.models import model_from_numpy
+
         path = _model_stream(tmp_path, capsys, telemetry=False)
-        assert main(["train", "--csv", path, "--mesh", "2", "--device", "cpu"]) == 2
-        captured = capsys.readouterr()
-        assert "ROADMAP A14" in captured.err and captured.out == ""
+        runs = {}
+        for mesh in ((), ("--mesh", "2")):
+            out = str(tmp_path / f"w{len(mesh)}.npz")
+            stats = _run(capsys, "train", "--csv", path, "--epochs", "5",
+                         "--out", out, *mesh)
+            with np.load(out) as f:
+                runs[mesh] = (stats, model_from_numpy("logistic", dict(f),
+                                                      device="cpu"))
+        (single, m1), (meshed, m2) = runs[()], runs[("--mesh", "2")]
+        assert set(single) == set(meshed)
+        for key in ("train_nll", "eval_logloss"):
+            assert meshed[key] == pytest.approx(single[key], abs=MESH_ATOL)
+        for p, q in zip(m1.parameters(), m2.parameters()):
+            np.testing.assert_allclose(q.detach().numpy(), p.detach().numpy(),
+                                       rtol=0, atol=MESH_ATOL)
         assert main(["train", "--csv", path, "--mesh", "2", "--eval-frac", "2",
                      "--device", "cpu"]) == 2
         assert capsys.readouterr().err.strip() == "error: --eval-frac must be in [0, 1)"

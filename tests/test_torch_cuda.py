@@ -15,7 +15,8 @@ port's CPU run (the features pass, its CUDA graph against eager dispatch
 bit for bit, Elo, both heads' training, the Worker with and without the
 calibration ledger); the shadow audit of a Worker serving from the card
 (0 mismatches against the oracle, rows equal to a Worker with every plane
-off). Every test
+off); the row scatter's drop mode and the sharded re-rate (``parallel``)
+on the card. Every test
 needs a CUDA device (marker
 ``cuda``) and skips with a reason without one. On the card, where JAX is
 not installed, run them without the suite's conftest:
@@ -763,3 +764,55 @@ def test_audited_worker_on_card_has_zero_mismatches(cuda, tmp_path):
     assert dumps[0] == dumps[1]
     assert audits[0]["checked"] == audits[0]["sampled"] > 0
     assert audits[0]["mismatches"] == 0 and audits[1] is None
+
+
+@pytest.mark.parametrize("steps", [1, 7])
+def test_row_scatter_drop_mode_equals_plain(cuda, steps):
+    """``mode="drop"`` on the card: padding entries past the table (and a
+    negative one) write nothing, in one launch, bit for bit the plain
+    version's masked ``index_copy_``; every thread still reaches the grid
+    barrier between steps (the multi-step run would hang otherwise)."""
+    from analyzer_tpu_torch.kernels import row_scatter as rs
+
+    rng = np.random.default_rng(steps)
+    p, r, width = 20000, 4096, 16
+    idx = np.stack([rng.choice(p, r, replace=False) for _ in range(steps)])
+    idx[:, rng.random(r) < 0.3] = p  # the mesh's padding: one past the block
+    idx[:, 0] = -1
+    idx = torch.from_numpy(idx.astype(np.int32)).to(cuda)
+    rows = torch.from_numpy(rng.random((steps, r, width)).astype(np.float32)).to(cuda)
+    table = torch.from_numpy(rng.random((p, width)).astype(np.float32)).to(cuda)
+    before = rs.launches
+    got = rs.row_scatter_steps(table.clone(), idx, rows, check=True, mode="drop")
+    assert rs.launches == before + 1
+    want = rs.row_scatter_steps_plain(table.clone(), idx, rows, mode="drop")
+    torch.cuda.synchronize()
+    assert rs.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def test_sharded_rerate_on_the_card_equals_the_reference(cuda):
+    """``rate_history_sharded`` at D=2 on the card, one ``row_scatter``
+    launch a superstep, bit for bit the reference runner; and
+    ``rate_stream(mesh=)`` too."""
+    from analyzer_tpu_torch.kernels import row_scatter as rs
+    from analyzer_tpu_torch.parallel import make_mesh, rate_history_sharded
+    from analyzer_tpu_torch.sched import rate_stream
+
+    players = synthetic_players(300, seed=3)
+    stream = synthetic_stream(3000, players, seed=3, afk_rate=0.1)
+    state = PlayerState.create(300, players.rank_points_ranked,
+                               players.rank_points_blitz, players.skill_tier,
+                               device=cuda)
+    sched = pack_schedule(stream, pad_row=300, batch_size=64)
+    want, _ = rate_history(state, sched, CFG)
+    mesh = make_mesh(2)
+    assert mesh.device.type == "cuda"
+    before = rs.launches
+    got = rate_history_sharded(state, sched, CFG, mesh=mesh, steps_per_chunk=50)
+    torch.cuda.synchronize()
+    assert rs.launches - before == sched.n_steps
+    assert got.table.is_cuda and torch.equal(got.table.isnan(), want.table.isnan())
+    assert torch.equal(got.table.nan_to_num(), want.table.nan_to_num())
+    streamed, _ = rate_stream(state, stream, CFG, mesh=mesh)
+    assert torch.equal(streamed.table.nan_to_num(), want.table.nan_to_num())

@@ -36,8 +36,9 @@ Within a stated tolerance, and why:
 The MLP's initial weights come from the JAX package (``init_mlp`` with
 threefry) and cross over through ``model_from_numpy``; the port's own
 ``init_mlp`` draws from a ``torch.Generator`` and does not reproduce
-JAX's stream (ROADMAP Queue C). ``TestMeshTraining``'s counterpart holds
-the ROADMAP A14 refusal. Sizes are ``tests/test_models.py``'s; the
+JAX's stream (ROADMAP Queue C). ``TestMeshTraining`` holds data-parallel
+training to single-device training (``MESH_ATOL``; against JAX's mesh
+training in tests/test_torch_parallel.py). Sizes are ``tests/test_models.py``'s; the
 features pass is computed once per package in module fixtures.
 ``TestSynergy.test_head_beats_rating_baseline_iff_synergy_on`` runs two
 6,000-step features passes on the CPU (~25 s each), so it lives in
@@ -79,6 +80,11 @@ from analyzer_tpu_torch.sched import pack_schedule
 CFG = RatingConfig()
 JCFG = JaxRatingConfig()
 CPU = "cpu"
+#: Data-parallel training against single-device training: the same Adam
+#: steps on gradients summed in another order (each shard's masked mean,
+#: weighted by its share of the minibatch, then summed), so float32
+#: rounding of the reduction is all that may differ.
+MESH_ATOL = 1e-5
 ELO_ATOL, EXP_ATOL = 2e-3, 1e-5
 FEAT_RTOL, FEAT_ATOL = 1e-5, 1e-5
 W_RTOL, W_ATOL = 1e-4, 1e-5
@@ -395,12 +401,28 @@ class TestTrainingParity:
 
 class TestMeshTraining:
     def test_mesh_is_refused_naming_a14(self, feats, history):
+        """``mesh=`` is ported: data-parallel training over 2 and 4 shards
+        equals single-device training up to float32 reduction order (the
+        JAX package's promise), held at ``MESH_ATOL``; the batch rounds up
+        to a multiple of the shard count."""
+        from analyzer_tpu_torch.parallel import make_mesh
+
         (f, rat, _), _ = feats
         y = (history[1].winner == 0).astype(np.float32)
         for fn in (train_logistic, train_mlp):
-            with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-                fn(f[rat], y[rat], epochs=1, batch_size=512, mesh=object(),
-                   device=CPU)
+            # 511 rounds up to 512 on both meshes: the single-device run
+            # at 512 makes the same minibatches.
+            base, base_nll = fn(f[rat], y[rat], epochs=2, batch_size=512,
+                                device=CPU)
+            for d in (2, 4):
+                got, nll = fn(f[rat], y[rat], epochs=2, batch_size=511,
+                              mesh=make_mesh(d, device=CPU), device=CPU)
+                assert nll == pytest.approx(base_nll, abs=MESH_ATOL)
+                for (name, p), (_, q) in zip(got.named_parameters(),
+                                             base.named_parameters()):
+                    np.testing.assert_allclose(
+                        p.detach().numpy(), q.detach().numpy(),
+                        rtol=0, atol=MESH_ATOL, err_msg=name)
 
 
 # -- tests/test_models.py, held on the port --------------------------------

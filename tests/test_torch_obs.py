@@ -565,17 +565,27 @@ class TestCliSurface:
         capsys.readouterr()
 
     @pytest.mark.parametrize("argv,item", [
-        (("--mesh", "2"), "ROADMAP A14"),
-        (("--obs-port", "0", "--mesh", "2"), "ROADMAP A14"),
+        (("--mesh", "2"), "mesh_devices"),
+        (("--obs-port", "0", "--mesh", "2"), "mesh_devices"),
     ])
     def test_unported_rate_flags_exit_2(self, tmp_path, capsys, argv, item):
-        """``--mesh`` exits 2 naming ROADMAP A14, with or without
-        ``--obs-port`` (ported: obsd starts, and closes on the refusal)."""
+        """``--mesh`` is ported, with or without ``--obs-port`` (obsd
+        starts first): the run exits 0, its stats line carries
+        ``mesh_devices`` and ``processes`` and equals the single-device
+        run's."""
         path = _synth(tmp_path)
         capsys.readouterr()
-        assert cli.main(["rate", "--csv", path, "--device", "cpu", *argv]) == 2
-        err = capsys.readouterr().err
-        assert err.startswith(("error:", "obsd listening")) and item in err
+        assert cli.main(["rate", "--csv", path, "--device", "cpu"]) == 0
+        want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert cli.main(["rate", "--csv", path, "--device", "cpu", *argv]) == 0
+        captured = capsys.readouterr()
+        got = json.loads([ln for ln in captured.out.splitlines()
+                          if ln.startswith("{")][-1])  # loggers share stdout
+        assert (got[item], got["processes"]) == (2, 1)
+        for key in ("matches", "players_rated", "mean_mu"):
+            assert got[key] == want[key], key
+        if "--obs-port" in argv:
+            assert captured.err.startswith("obsd listening")
 
     def test_rate_trace_writes_a_capture_cli_profile_parses(self, tmp_path,
                                                             capsys):

@@ -287,3 +287,64 @@ def test_check_catches_range_and_duplicates():
         rs.row_scatter(table, j, rows, check=True)
     rs.row_scatter(table, idx, rows, check=True)  # a good call passes
     assert rs.row_scatter(table, idx[:0], rows[:0]) is table  # nothing to write
+
+
+# -- mode="drop" (the sharded re-rate's padded compacted scatter) ------------
+
+
+def _drop_args(s=3, p=50, r=8, w=16, seed=4):
+    """Steps whose last three entries are padding past the table (``p``, as
+    the mesh pads with one past the shard, and beyond)."""
+    table, idx, rows = _steps_args(s, p, r, w)
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.random((p, w)).astype(np.float32))
+    idx[:, -3:] = torch.tensor([p, p, p + 7], dtype=torch.int32)
+    return table, idx, rows
+
+
+def test_drop_mode_plain_version_equals_xla_drop_scatter():
+    """The plain drop version against the JAX package's scatter with
+    ``mode="drop"`` (``tbl.at[dst].set(rows, mode="drop")``, the sharded
+    step's), step by step, bit for bit."""
+    table, idx, rows = _drop_args()
+    want = jnp.asarray(table.numpy())
+    for s in range(idx.shape[0]):
+        want = want.at[jnp.asarray(idx[s].numpy())].set(
+            jnp.asarray(rows[s].numpy()), mode="drop")
+    got = rs.row_scatter_steps(table.clone(), idx, rows, mode="drop")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    one = rs.row_scatter(table.clone(), idx[0], rows[0], mode="drop")
+    plain = rs.row_scatter_plain(table.clone(), idx[0], rows[0], mode="drop")
+    assert torch.equal(one, plain)
+    kept = idx[0][:-3].long()
+    assert torch.equal(one[kept], rows[0][:-3])
+    untouched = torch.ones(table.shape[0], dtype=torch.bool)
+    untouched[kept] = False
+    assert torch.equal(one[untouched], table[untouched])
+    # A negative index is outside [0, P) too, and skipped (XLA's scatter
+    # would wrap it first; the mesh never pads with one).
+    neg = idx[0].clone()
+    neg[-1] = -1
+    assert torch.equal(rs.row_scatter(table.clone(), neg, rows[0], mode="drop"), one)
+
+
+def test_drop_mode_check_wants_kept_entries_distinct_only():
+    table, idx, rows = _drop_args()
+    before = rs.launches
+    rs.row_scatter_steps(table.clone(), idx, rows, check=True, mode="drop")
+    assert rs.launches == before  # the plain version, uncounted
+    bad = idx.clone()
+    bad[1, 0] = bad[1, 2]  # two kept entries share a row
+    with pytest.raises(ValueError, match="distinct within a step"):
+        rs.row_scatter_steps(table, bad, rows, check=True, mode="drop")
+    with pytest.raises(ValueError, match="lie in"):  # the default refuses them
+        rs.row_scatter_steps(table, idx, rows, check=True)
+    with pytest.raises(ValueError, match="mode must be one of"):
+        rs.row_scatter(table, idx[0], rows[0], mode="clip")
+
+
+def test_drop_mode_all_padding_writes_nothing():
+    table, idx, rows = _drop_args()
+    idx[:] = table.shape[0]
+    got = rs.row_scatter_steps(table.clone(), idx, rows, check=True, mode="drop")
+    assert torch.equal(got, table)

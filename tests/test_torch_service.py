@@ -463,18 +463,15 @@ class TestRefusals:
         (dict(flight_dir=True), "flight"),
         (dict(audit=True, serve_port=0), "auditor"),
         (dict(slo_plane=True), "watchdog"),
-        (dict(serve_shards=2), "A11b"),
+        (dict(serve_shards=2, serve_port=0), "query_engine"),
     ])
     def test_unported_planes_raise(self, kw, item, tmp_path):
-        """Only the sharded serve plane (ROADMAP A11b) is still refused;
-        each live plane builds its object and closes with the worker."""
+        """No plane is refused any more: each live plane, and the sharded
+        serve plane (``serve_shards=2``), builds its object and closes with
+        the worker."""
         from analyzer_tpu_torch.obs import reset_flight_recorder
+        from analyzer_tpu_torch.serve import ShardedQueryEngine
 
-        if item == "A11b":
-            with pytest.raises(NotImplementedError, match=item):
-                Worker(InMemoryBroker(), InMemoryStore(), ServiceConfig(),
-                       device="cpu", **kw)
-            return
         if kw.get("flight_dir"):
             kw = dict(flight_dir=str(tmp_path))
         try:
@@ -482,6 +479,8 @@ class TestRefusals:
                        device="cpu", **kw)
             try:
                 assert getattr(w, item) is not None
+                if "serve_shards" in kw:
+                    assert isinstance(w.query_engine, ShardedQueryEngine)
             finally:
                 w.close()
             assert w.obs_server is None and w.serve_server is None
@@ -504,12 +503,12 @@ class TestRefusals:
         (("--obs-port", "0"), None),
         (("--flight-dir", "x"), None),
         (("--audit",), None),
-        (("--serve-shards", "2"), "A11b"),
+        (("--serve-shards", "2"), None),
     ])
     def test_worker_flags_exit_2(self, capsys, monkeypatch, argv, item):
-        """``--serve-shards 2`` exits 2 naming ROADMAP A11b; the live
-        planes' flags are ported: they reach the consume loop, which then
-        needs pika like any other worker run."""
+        """Every worker flag is ported — the live planes' and
+        ``--serve-shards 2`` (the sharded serve plane): each reaches the
+        consume loop, which then needs pika like any other worker run."""
         if item is None:
             monkeypatch.delenv("DATABASE_URI", raising=False)
             monkeypatch.setitem(sys.modules, "pika", None)

@@ -213,17 +213,25 @@ class TestRateStreamInPort:
             assert out.quality.shape == (0,)
 
     def test_unported_options_and_bad_rows_raise(self):
-        """``mesh=`` is the one option of ``rate_stream`` still unported;
-        ``hot_rows`` and ``view_publisher`` (refused until the tiered table
-        and the serve plane were ported) now run."""
+        """Every option of ``rate_stream`` is ported: ``mesh=`` runs the
+        sharded feed (equal to the single-device run bit for bit) and
+        refuses, as the JAX package does, what does not compose with it
+        (``collect``, ``kernel="fused"``, ``hot_rows``); ``hot_rows`` and
+        ``view_publisher`` run."""
+        from analyzer_tpu_torch.parallel import make_mesh
         from analyzer_tpu_torch.serve import ViewPublisher
 
         state, stream, _j, _js = _case("plain")
-        with pytest.raises(NotImplementedError, match="A14"):
-            rate_stream(state, stream, CFG, mesh=object())
-        with pytest.raises(ValueError, match="hot_rows"):
-            rate_stream(state, stream, CFG, mesh=object(), hot_rows=8)
+        mesh = make_mesh(2, device="cpu")
+        for kw, text in ((dict(collect=True), "collect"),
+                         (dict(kernel="fused"), "kernel='fused'"),
+                         (dict(hot_rows=8), "hot_rows")):
+            with pytest.raises(ValueError, match=text):
+                rate_stream(state, stream, CFG, mesh=mesh, **kw)
         want, _ = rate_stream(state, stream, CFG)
+        sharded, _ = rate_stream(state, stream, CFG, mesh=mesh)
+        assert np.array_equal(sharded.table.numpy(), want.table.numpy(),
+                              equal_nan=True)
         pub = ViewPublisher(device="cpu")
         got, _ = rate_stream(state, stream, CFG, hot_rows=4096, view_publisher=pub)
         assert np.array_equal(got.table.numpy(), want.table.numpy(), equal_nan=True)

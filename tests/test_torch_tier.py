@@ -342,11 +342,17 @@ class TestPromotionProtocol:
             rate_stream(state, empty, CFG, hot_rows=-1)
 
     def test_mesh_refuses_hot_rows(self):
+        """The mesh and the tiered table do not compose (JAX's ValueError);
+        the mesh alone runs (ported) and equals the unsharded run."""
+        from analyzer_tpu_torch.parallel import make_mesh
+
         stream, state, _ = small_stream(n_matches=20, n_players=20)
+        mesh = make_mesh(2, device="cpu")
         with pytest.raises(ValueError, match="hot_rows > 0 is not supported with mesh"):
-            rate_stream(state, stream, CFG, mesh=object(), hot_rows=8)
-        with pytest.raises(NotImplementedError, match="A14"):
-            rate_stream(state, stream, CFG, mesh=object())
+            rate_stream(state, stream, CFG, mesh=mesh, hot_rows=8)
+        got, _ = rate_stream(state, stream, CFG, mesh=mesh)
+        want, _ = rate_stream(state, stream, CFG)
+        assert np.array_equal(got.table.numpy(), want.table.numpy(), equal_nan=True)
 
     def test_manager_follows_the_state_to_its_device(self):
         tier, state = self.manager()
