@@ -1,6 +1,6 @@
 """Command-line interface of the port: ``python -m analyzer_tpu_torch.cli
-synth | rate | serve | query | worker | bench | metrics | history | trace |
-profile | elo | train | quality | fleet``.
+synth | rate | migrate | serve | query | worker | soak | bench | metrics |
+history | trace | profile | elo | train | quality | fleet``.
 
 Counterparts of the same subcommands of ``analyzer_tpu.cli``, with the JAX
 package's flags, defaults, error texts (exit 2) and JSON lines.
@@ -60,18 +60,28 @@ capture directory's device time per kernel; each has the JAX package's
 flags, exit codes and JSON.
 
 ``bench`` is the headline capture (:mod:`analyzer_tpu_torch.bench`: the
-BENCH line, or with ``--ingest`` the ingest line), with the JAX package's
-flags routed into the same env knobs.
+BENCH line, with ``--ingest`` the ingest line, with ``--migrate`` the
+migration line), with the JAX package's flags routed into the same env
+knobs.
 
-``rate``, ``serve``, ``worker``, ``bench``, ``elo`` and ``train`` run on the
-card (``--device cuda``, the default) and refuse to start where there is
-none; ``--device cpu`` runs them on the CPU. ``rate --mesh N`` and ``train
+``migrate`` is the zero-downtime re-rate of a CSV history
+(:mod:`analyzer_tpu_torch.migrate`): the streamed decode -> assign ->
+dispatch backfill into a staging view lineage, the atomic cutover, and
+checkpoint / resume (``--checkpoint`` / ``--checkpoint-every`` /
+``--stop-after-steps`` / ``--resume``). ``soak`` is the closed-loop
+matchmaking soak (:mod:`analyzer_tpu_torch.loadgen`), exit 1 on an SLO
+violation; ``--out`` writes the ``SOAK_r*.json`` artifact.
+
+``rate``, ``migrate``, ``serve``, ``worker``, ``soak``, ``bench``, ``elo``
+and ``train`` run on the card (``--device cuda``, the default) and refuse
+to start where there is none; ``--device cpu`` runs them on the CPU. ``rate --mesh N`` and ``train
 --mesh N`` run data-parallel over an N-shard mesh (``parallel/``; with the
 ``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID`` env, ``--mesh
 0`` runs one shard per process of a ``torch.distributed`` group, NCCL on
 the card and gloo on the CPU); ``serve --shards N`` and ``worker
---serve-shards N`` serve through the sharded plane. Not ported yet:
-``bench --migrate`` (ROADMAP A13, exits 2).
+--serve-shards N`` serve through the sharded plane. Not ported yet (exit
+2, naming the item): ``soak --hosts`` and ``--fabric-shards`` (ROADMAP
+A15b, the fabric) and ``soak --serve-http`` (ROADMAP A11c, the front door).
 """
 
 from __future__ import annotations
@@ -87,8 +97,9 @@ import numpy as np
 
 from analyzer_tpu_torch.utils.profiling import PhaseTimer, trace
 
-#: The ROADMAP item the refused flags wait for.
-A13 = "ROADMAP A13, migration"
+#: The ROADMAP items the refused soak flags wait for.
+A15B = "ROADMAP A15b, the fabric"
+A11C = "ROADMAP A11c, the serve front door"
 
 
 def _load_stream(path: str):
@@ -1269,10 +1280,6 @@ def cmd_bench(args) -> int:
     ``BENCH_KERNEL=...`` run stay one code path."""
     from analyzer_tpu_torch import bench
 
-    why = bench.refusal(args.migrate)
-    if why is not None:
-        print(f"error: {why}", file=sys.stderr)
-        return 2
     device = _resolve_device(args, "run the benchmark")
     if device is None:
         return 2
@@ -1284,6 +1291,8 @@ def cmd_bench(args) -> int:
         os.environ["BENCH_HOT_ROWS"] = str(args.hot_rows)
     if args.ingest:
         os.environ["BENCH_INGEST"] = "1"
+    if args.migrate:
+        os.environ["BENCH_MIGRATE"] = "1"
     if args.profile:
         os.environ["BENCH_PROFILE"] = "1"
     if args.profile_dir:
@@ -1455,6 +1464,265 @@ def cmd_fleet(args) -> int:
     finally:
         server.close()
     return 1 if collector.burning else 0
+
+
+def _migrate_quality(data: bytes, report, pre_live_view, cfg):
+    """The staging-vs-live replay judge (``obs.quality.score_table``):
+    scores the migrated table AND the pre-migration live table over the
+    SAME replay window with the serve plane's Phi link. Advisory: the
+    migrated table saw these matches and the live one may not have, so a
+    fit gap is expected; the alarm is a migrated table that fits worse."""
+    import io as _io
+
+    from analyzer_tpu_torch.io.csv_codec import load_stream_csv
+    from analyzer_tpu_torch.obs.quality import score_table
+
+    stream = load_stream_csv(_io.StringIO(data.decode("utf-8")))
+    keys = ("matches_scored", "brier", "logloss", "ece")
+    migrated = score_table(report.state.table.cpu().numpy(), stream, cfg)
+    out = {"migrated": {k: migrated[k] for k in keys}}
+    if pre_live_view is not None:
+        live_q = score_table(pre_live_view.host_table(), stream, cfg)
+        out["live_pre_cutover"] = {k: live_q[k] for k in keys}
+    return out
+
+
+def cmd_migrate(args) -> int:
+    """Zero-downtime global re-rate: the streamed decode -> assign ->
+    dispatch backfill engine rates a CSV history while a live lineage keeps
+    serving, publishes into a staging view lineage, and cuts traffic over
+    atomically at the end. Checkpointed and resumable: a killed backfill
+    restarts from its last window-boundary watermark and gives a
+    bit-identical final table."""
+    from analyzer_tpu_torch.config import RatingConfig
+    from analyzer_tpu_torch.core.state import PlayerState
+    from analyzer_tpu_torch.migrate import LineageManager, run_migration
+    from analyzer_tpu_torch.serve import ViewPublisher
+
+    if args.resume and not args.checkpoint:
+        print("error: --resume requires --checkpoint", file=sys.stderr)
+        return 2
+    if args.checkpoint_every and not args.checkpoint:
+        print("error: --checkpoint-every requires --checkpoint",
+              file=sys.stderr)
+        return 2
+    for flag in ("checkpoint_every", "stop_after_steps", "prefetch_depth",
+                 "window_rows", "batch_size", "plan_windows"):
+        val = getattr(args, flag)
+        if val is not None and val <= 0:
+            print(f"error: --{flag.replace('_', '-')} must be positive",
+                  file=sys.stderr)
+            return 2
+    if args.hot_rows < 0:
+        print("error: --hot-rows must be >= 0 (0 = untiered)", file=sys.stderr)
+        return 2
+    device = _resolve_device(args, "migrate")
+    if device is None:
+        return 2
+    server = _obs_serve(args)
+    timer = PhaseTimer()
+    try:
+        cfg = RatingConfig.from_env()
+        with timer.phase("load"):
+            with open(args.csv, "rb") as f:
+                data = f.read()
+        state = None
+        if not args.resume:
+            n_players = args.players
+            if n_players is None:
+                # No --players: probe the stream for its row ceiling (one
+                # decode pass — pass --players to skip it).
+                from analyzer_tpu_torch.io.ingest import decode_stream_csv
+
+                with timer.phase("probe"):
+                    probe = decode_stream_csv(data)
+                    if probe is None:
+                        import io as _io
+
+                        from analyzer_tpu_torch.io.csv_codec import load_stream_csv
+
+                        probe = load_stream_csv(_io.StringIO(data.decode("utf-8")))
+                    n_players = (
+                        int(probe.player_idx.max()) + 1 if probe.n_matches else 0
+                    )
+                    del probe
+                print(
+                    f"probed {n_players} players (pass --players to skip "
+                    "the probe)", file=sys.stderr,
+                )
+            state = PlayerState.create(n_players, cfg=cfg, device=device)
+        # The in-process live lineage: primed from --from-checkpoint when
+        # serving continuity from an existing table matters, else empty
+        # (the cutover publishes version 1).
+        live = ViewPublisher(device=device)
+        if args.from_checkpoint:
+            from analyzer_tpu_torch.io.checkpoint import load_checkpoint
+
+            live.publish_state(
+                load_checkpoint(args.from_checkpoint, device=device).state
+            )
+        lineage = LineageManager(live)
+        engine_kw = {}
+        if args.window_rows:
+            engine_kw["window_rows"] = args.window_rows
+        if args.plan_windows:
+            engine_kw["plan_windows"] = args.plan_windows
+        # The pre-migration live view, taken NOW: the cutover repoints
+        # `live` at the migrated table, and the judge needs the one replaced.
+        pre_live_view = live.current()
+        with timer.phase("migrate"):
+            report = run_migration(
+                state, data, cfg,
+                lineage=lineage,
+                checkpoint=args.checkpoint,
+                resume=args.resume,
+                checkpoint_every=args.checkpoint_every,
+                stop_after=args.stop_after_steps,
+                do_cutover=not args.no_cutover,
+                device=device,
+                batch_size=args.batch_size,
+                prefetch_depth=args.prefetch_depth,
+                kernel=args.kernel,
+                fuse_window=args.fuse_window,
+                hot_rows=args.hot_rows,
+                **engine_kw,
+            )
+            _sync(report.state)
+        if report.finished:
+            _obs_write(args)
+        quality = None
+        if report.finished and not args.no_quality:
+            with timer.phase("quality"):
+                try:
+                    quality = _migrate_quality(data, report, pre_live_view, cfg)
+                except Exception as e:  # noqa: BLE001 — advisory evidence
+                    quality = {"error": repr(e)}
+        stats = report.stats
+        print(json.dumps({
+            "matches": stats.get("matches"),
+            "supersteps": stats.get("n_steps"),
+            "batch_size": stats.get("batch_size"),
+            "occupancy": round(stats.get("occupancy", 0.0), 3),
+            "streamed": stats.get("streamed"),
+            "assign_native": stats.get("assign_native"),
+            "plan_windows": stats.get("plan_windows"),
+            "stopped": stats.get("stopped", False),
+            "ttfd_s": (
+                round(stats["ttfd_s"], 4)
+                if stats.get("ttfd_s") is not None else None
+            ),
+            "cutover_pause_ms": report.cutover_pause_ms,
+            "lineage_live_version": live.version,
+            "quality": quality,
+            "phases": {k: round(v, 3) for k, v in timer.report().items()},
+        }))
+        return 0
+    finally:
+        if server is not None:
+            server.close()
+
+
+def cmd_soak(args) -> int:
+    """The closed-loop matchmaking soak (:mod:`analyzer_tpu_torch.loadgen`):
+    matchmaker -> broker -> worker -> commit -> view publish, with /v1/*
+    query traffic, SLO samples per virtual tick, and a SOAK_*.json artifact
+    (``--out``). Deterministic per (seed, config); exit 1 when an SLO is
+    violated."""
+    from analyzer_tpu_torch.loadgen import SoakConfig, SoakDriver
+    from analyzer_tpu_torch.loadgen.driver import write_artifact
+
+    if args.hosts is not None or args.fabric_shards is not None:
+        print(f"error: soak --hosts / --fabric-shards (the soak over a "
+              f"multi-process fabric) is not ported yet ({A15B})",
+              file=sys.stderr)
+        return 2
+    if args.serve_http:
+        print(f"error: soak --serve-http (the serve front door) is not "
+              f"ported yet ({A11C})", file=sys.stderr)
+        return 2
+    for flag in ("duration", "qps", "tick", "players", "batch_size",
+                 "polls_per_tick", "serve_shards", "broker_partitions",
+                 "audit_sample_denom", "migrate_matches"):
+        if getattr(args, flag) <= 0:
+            print(f"error: --{flag.replace('_', '-')} must be positive",
+                  file=sys.stderr)
+            return 2
+    if args.query_qps < 0:
+        print("error: --query-qps must be >= 0 (0 = no read traffic)",
+              file=sys.stderr)
+        return 2
+    if args.backfill_qps < 0:
+        print("error: --backfill-qps must be >= 0", file=sys.stderr)
+        return 2
+    if args.backfill_qps > 0 and not args.priority_lanes:
+        print("error: --backfill-qps needs --priority-lanes (backfill "
+              "traffic rides the backfill lane)", file=sys.stderr)
+        return 2
+    if args.forbid_dominant_stages and not (args.trace or args.trace_events):
+        print("error: --forbid-dominant-stage needs --trace (the check "
+              "reads the trace block's critical path)", file=sys.stderr)
+        return 2
+    device = _resolve_device(args, "soak")
+    if device is None:
+        return 2
+    # The soak's obsd rides the WORKER (SoakConfig.obs_port), so its
+    # endpoints carry the worker's stats and readiness.
+    cfg = SoakConfig(
+        seed=args.seed,
+        obs_port=args.obs_port,
+        trace=bool(args.trace or args.trace_events),
+        duration_s=args.duration,
+        tick_s=args.tick,
+        qps=args.qps,
+        query_qps=args.query_qps,
+        n_players=args.players,
+        batch_size=args.batch_size,
+        polls_per_tick=args.polls_per_tick,
+        team5_frac=args.team5_frac,
+        afk_rate=args.afk_rate,
+        warmup=not args.no_warmup,
+        use_http=not args.in_process,
+        serve_shards=args.serve_shards,
+        broker_partitions=args.broker_partitions,
+        priority_lanes=args.priority_lanes,
+        backfill_qps=args.backfill_qps,
+        realtime=args.realtime,
+        max_view_lag_ticks=args.max_view_lag_ticks,
+        min_matches_per_sec=args.min_matches_per_sec,
+        max_p99_ms=args.max_p99_ms,
+        forbid_dominant_stages=tuple(args.forbid_dominant_stages),
+        slo_plane=not args.no_slo_plane,
+        audit=args.audit,
+        audit_sample_denom=args.audit_sample_denom,
+        migrate=args.migrate,
+        migrate_matches=args.migrate_matches,
+        quality=not args.no_quality,
+    )
+    driver = SoakDriver(cfg, device=device)
+    try:
+        artifact = driver.run()
+    finally:
+        driver.close()
+    _obs_write(args)
+    # One JSON line on stdout (the headline); the full artifact goes to
+    # --out.
+    line = {
+        k: artifact[k]
+        for k in ("metric", "value", "latency_ms", "measured", "slo")
+    }
+    line["deterministic"] = {
+        k: v for k, v in artifact["deterministic"].items()
+        if k != "trajectory"
+    }
+    print(json.dumps(line))
+    if args.out:
+        write_artifact(artifact, args.out)
+        print(f"wrote soak artifact to {args.out}", file=sys.stderr)
+    if not artifact["slo"]["pass"]:
+        for v in artifact["slo"]["violations"]:
+            print(f"SLO VIOLATION: {v}", file=sys.stderr)
+        return 1
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1715,6 +1983,272 @@ def build_parser() -> argparse.ArgumentParser:
     )
     s.set_defaults(fn=cmd_worker)
 
+    s = sub.add_parser(
+        "soak",
+        help="closed-loop matchmaking soak with SLO gates "
+        "(analyzer_tpu_torch/loadgen; --out writes the SOAK_*.json artifact)",
+    )
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument(
+        "--duration", type=float, default=8.0, metavar="S",
+        help="VIRTUAL seconds to soak (ticks = duration/tick; wall time "
+        "only matters with --realtime). Default: 8",
+    )
+    s.add_argument(
+        "--qps", type=float, default=24.0,
+        help="matches formed per virtual second (default: 24)",
+    )
+    s.add_argument(
+        "--query-qps", type=float, default=10.0, metavar="QPS",
+        help="serve queries per virtual second against /v1/* "
+        "(default: 10; mix: ratings/winprob/leaderboard/tiers)",
+    )
+    s.add_argument(
+        "--tick", type=float, default=1.0, metavar="S",
+        help="virtual tick length (default: 1.0)",
+    )
+    s.add_argument("--players", type=int, default=400)
+    s.add_argument(
+        "--batch-size", type=int, default=64,
+        help="worker micro-batch size (default: 64)",
+    )
+    s.add_argument(
+        "--polls-per-tick", type=int, default=4,
+        help="worker poll budget per tick — overload shows up as queue "
+        "depth instead of stretching the tick (default: 4)",
+    )
+    s.add_argument("--team5-frac", type=float, default=0.3,
+                   help="fraction of 5v5 matches (default: 0.3)")
+    s.add_argument("--afk-rate", type=float, default=0.0,
+                   help="fraction of matches with an AFK participant")
+    s.add_argument(
+        "--max-view-lag-ticks", type=int, default=2, metavar="N",
+        help="SLO: ticks the served view may stay stale while commits "
+        "are pending (default: 2)",
+    )
+    s.add_argument(
+        "--min-matches-per-sec", type=float, metavar="N",
+        help="SLO: absolute wall-throughput floor (default: ungated)",
+    )
+    s.add_argument(
+        "--max-p99-ms", type=float, metavar="MS",
+        help="SLO: absolute serve-query p99 cap (default: ungated)",
+    )
+    s.add_argument(
+        "--no-warmup", action="store_true",
+        help="skip the worker/serve/publish warmup (the first touches of "
+        "the device then land in the measured window)",
+    )
+    s.add_argument(
+        "--in-process", action="store_true",
+        help="query the engine in-process instead of over HTTP /v1/*",
+    )
+    s.add_argument(
+        "--serve-http", action="store_true",
+        help=f"not ported yet ({A11C}): exits 2",
+    )
+    s.add_argument(
+        "--serve-shards", type=int, default=1, metavar="S",
+        help="serve the soak's read plane through S shards "
+        "(ShardedViewPublisher + ShardedQueryEngine); the deterministic "
+        "block is bit-identical to --serve-shards 1 for the same seed "
+        "(docs/serving.md \"Sharded plane\")",
+    )
+    s.add_argument(
+        "--broker-partitions", type=int, default=1, metavar="S",
+        help="partition the analyze queue by player-shard (row %% S, the "
+        "serve plane's mesh layout invariant): per-partition depth/"
+        "dead-letter accounting, global delivery order preserved — the "
+        "deterministic block is bit-identical to the single-queue run "
+        "(docs/ingest.md \"Partition math\")",
+    )
+    s.add_argument(
+        "--priority-lanes", action="store_true",
+        help="live-vs-backfill priority lanes on the broker, with the "
+        "admission controller arbitrating backfill behind live traffic "
+        "on feed-starvation + tier-promotion telemetry "
+        "(docs/ingest.md \"Lane arbitration\")",
+    )
+    s.add_argument(
+        "--backfill-qps", type=float, default=0.0, metavar="QPS",
+        help="re-publish already-rated matches on the backfill lane at "
+        "this rate (requires --priority-lanes) — the re-rate/replay "
+        "ingest shape",
+    )
+    s.add_argument(
+        "--forbid-dominant-stage", action="append", default=[],
+        metavar="STAGE", dest="forbid_dominant_stages",
+        help="SLO: fail when the trace block's critical-path dominant "
+        "stage is STAGE (repeatable; e.g. queue_wait encode — the "
+        "ingest-edge gate; needs --trace)",
+    )
+    s.add_argument(
+        "--realtime", action="store_true",
+        help="pace ticks against the wall clock (rig soaks); decisions "
+        "still run on the virtual clock, so results stay deterministic",
+    )
+    s.add_argument(
+        "--out", metavar="PATH",
+        help="write the SOAK_*.json artifact (the JAX package's shape; "
+        "stdout always carries the one-line summary)",
+    )
+    s.add_argument(
+        "--metrics-out", metavar="PATH",
+        help="also write the full telemetry snapshot as JSON",
+    )
+    s.add_argument(
+        "--obs-port", type=int, metavar="PORT",
+        help="serve the soak worker's obsd introspection endpoints "
+        "(watch soak.* and broker.queue_depth live, or point a "
+        "`cli fleet` Collector at it; 0 = ephemeral)",
+    )
+    s.add_argument(
+        "--trace", action="store_true",
+        help="causal tracing: every match carries a TraceContext from "
+        "broker enqueue to view publish, and the artifact gains a "
+        "`trace` block (stage decomposition + dominant stage); the "
+        "deterministic block stays bit-identical "
+        "(docs/observability.md \"Causal tracing\")",
+    )
+    s.add_argument(
+        "--trace-events", metavar="PATH",
+        help="write the span ring as Chrome trace-event JSONL after the "
+        "soak (implies --trace; the `cli trace` input)",
+    )
+    s.add_argument(
+        "--audit", action="store_true",
+        help="continuous shadow audit: a seeded-hash sample of the "
+        "soak's served queries replays through the bit-exact oracle off "
+        "the hot path; one mismatch fails the soak's SLO gate "
+        "(docs/observability.md \"Shadow audit\")",
+    )
+    s.add_argument(
+        "--audit-sample-denom", type=int, default=4, metavar="N",
+        help="audit 1-in-N served queries (default: 4; 1 = every query)",
+    )
+    s.add_argument(
+        "--no-slo-plane", action="store_true",
+        help="disable the history sampler + SLO watchdog (the "
+        "bit-identity AB knob; the deterministic block is identical "
+        "either way)",
+    )
+    s.add_argument(
+        "--no-quality", action="store_true",
+        help="disable the calibration ledger (the rating-quality "
+        "bit-identity AB knob; the artifact loses its `quality` block "
+        "and the deterministic block is identical either way)",
+    )
+    s.add_argument(
+        "--migrate", action="store_true",
+        help="run a full zero-downtime re-rate UNDER the live soak "
+        "load: the streamed backfill engine rates a seeded synthetic "
+        "history into a staging lineage (admission-arbitrated against "
+        "live traffic) while the soak serves, then cuts over "
+        "atomically after the measured window; the artifact gains a "
+        "`migration` block and the deterministic block is unchanged "
+        "per (seed, config)",
+    )
+    s.add_argument(
+        "--migrate-matches", type=int, default=400, metavar="N",
+        help="matches in the migrated synthetic history (default: 400)",
+    )
+    s.add_argument(
+        "--hosts", type=int, metavar="N",
+        help=f"the soak over a multi-process fabric: not ported yet "
+        f"({A15B}): exits 2",
+    )
+    s.add_argument(
+        "--fabric-shards", type=int, metavar="S",
+        help=f"fabric shard count for --hosts: not ported yet ({A15B}): "
+        "exits 2",
+    )
+    s.add_argument(
+        "--device", default="cuda",
+        help="where the soak's worker rates and serves: cuda (default; "
+        "refuses to start without a card) or cpu",
+    )
+    s.set_defaults(fn=cmd_soak)
+
+    s = sub.add_parser(
+        "migrate",
+        help="zero-downtime streamed re-rate: decode->assign->dispatch "
+        "overlapped, dual-lineage serve cutover, checkpoint/resume "
+        "(docs/migration.md)",
+    )
+    s.add_argument("--csv", required=True, help="match history CSV")
+    s.add_argument(
+        "--players", type=int, metavar="N",
+        help="player-table rows (default: probed from the stream with "
+        "one extra decode pass)",
+    )
+    s.add_argument(
+        "--checkpoint", metavar="PATH",
+        help="migration snapshot path (.npz; written at window "
+        "boundaries with the schedule fingerprint)",
+    )
+    s.add_argument(
+        "--resume", action="store_true",
+        help="resume from --checkpoint's watermark (the front half "
+        "re-derives the identical schedule from the bytes and skips "
+        "device work below it; final table bit-identical)",
+    )
+    s.add_argument(
+        "--checkpoint-every", type=int, metavar="STEPS",
+        help="snapshot every N supersteps mid-backfill",
+    )
+    s.add_argument(
+        "--stop-after-steps", type=int, metavar="STEPS",
+        help="stop at the window boundary at/after this superstep "
+        "(bounded runs; a snapshot is written there when --checkpoint "
+        "is set; no cutover happens)",
+    )
+    s.add_argument(
+        "--from-checkpoint", metavar="PATH",
+        help="prime the live lineage from this snapshot (serving "
+        "continuity while the backfill runs); default: empty live "
+        "lineage",
+    )
+    s.add_argument(
+        "--no-cutover", action="store_true",
+        help="skip the final atomic cutover (inspect the staging "
+        "lineage only)",
+    )
+    s.add_argument("--batch-size", type=int, metavar="B")
+    s.add_argument(
+        "--window-rows", type=int, metavar="N",
+        help="decode window rows (default 4096; io/ingest.py)",
+    )
+    s.add_argument(
+        "--plan-windows", type=int, metavar="K",
+        help="decode windows in the batch-size planning prefix (default "
+        "4; deterministic — the policy folds into the resume "
+        "fingerprint, so resume with the value the run was started with)",
+    )
+    s.add_argument("--prefetch-depth", type=int, metavar="N")
+    s.add_argument(
+        "--kernel", choices=("reference", "fused"),
+        default=os.environ.get("BENCH_KERNEL", "reference"),
+    )
+    s.add_argument("--fuse-window", type=int, metavar="K",
+                   default=int(os.environ.get("BENCH_FUSE_WINDOW", 0)) or None)
+    s.add_argument("--hot-rows", type=int, metavar="N",
+                   default=int(os.environ.get("BENCH_HOT_ROWS", 0)))
+    s.add_argument("--obs-port", type=int, metavar="PORT")
+    s.add_argument("--metrics-out", metavar="PATH")
+    s.add_argument("--trace-events", metavar="PATH")
+    s.add_argument(
+        "--no-quality", action="store_true",
+        help="skip the staging-vs-live calibration replay judge "
+        "(obs/quality.py score_table; it re-reads the stream once per "
+        "lineage, so very large histories may want this)",
+    )
+    s.add_argument(
+        "--device", default="cuda",
+        help="where to rate: cuda (default; refuses to start without a "
+        "card) or cpu",
+    )
+    s.set_defaults(fn=cmd_migrate)
+
     s = sub.add_parser("bench", help="headline throughput benchmark")
     s.add_argument(
         "--metrics-out", metavar="PATH",
@@ -1751,7 +2285,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     s.add_argument(
         "--migrate", action="store_true",
-        help=f"not ported yet ({A13}): exits 2",
+        help="capture the zero-downtime migration line instead "
+        "(BENCH_MIGRATE env): the streamed backfill engine re-rates a CSV "
+        "history into a staging lineage while the live plane answers "
+        "queries, then cuts over (backfill matches/s, live p99 during the "
+        "migration, cutover pause, the assign front half's rates)",
     )
     s.add_argument(
         "--profile", action="store_true",

@@ -23,9 +23,10 @@ caller, and every bin edge and threshold lives in the ONE table below
 
 Consumers: the worker's sequential commit site and its SLO tick's
 population-drift snapshot (service/worker.py), obsd's ``/qualityz``
-(obs/server.py), the calibration objective (obs/slo.py), ``cli quality``
-and :func:`score_table`. The JAX package's other readers (the soak
-artifact, the migration judge) wait for ROADMAP A15 and A13.
+(obs/server.py), the calibration objective (obs/slo.py), ``cli quality``,
+the soak artifact's ``quality`` block (loadgen/driver.py) and
+:func:`score_table` — the staging-vs-live replay judge of ``cli migrate``
+and the soak's migration block.
 """
 
 from __future__ import annotations

@@ -605,8 +605,9 @@ def soak_violations(data: dict, objectives=None) -> list[str]:
 
     The same table the live :class:`Watchdog` walks: doctor one
     objective and both consumers trip. The messages are the JAX
-    package's, word for word, on the same artifact (the port's soak
-    driver and ``cli benchdiff`` wait for ROADMAP A15 and A16c)."""
+    package's, word for word, on the same artifact. The port's soak
+    driver (``loadgen/driver.py``) judges its artifact here; ``cli
+    benchdiff`` waits for ROADMAP A16c."""
     det = data.get("deterministic")
     if not isinstance(det, dict):
         return ["artifact has no deterministic block (not a SOAK capture?)"]

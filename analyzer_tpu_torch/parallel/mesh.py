@@ -79,7 +79,7 @@ from analyzer_tpu_torch.sched.residency import window_reuse_stats
 logger = get_logger(__name__)
 
 #: The ROADMAP item the fabric publisher (``fabric_directory=``) waits for.
-A15 = "ROADMAP A15, loadgen and fabric"
+A15B = "ROADMAP A15b, the fabric"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -651,11 +651,11 @@ def rate_history_sharded(
     multi-process mesh a raw sharded publisher would tear the view (each
     process holds only its own shards) and is refused; the JAX package's
     ``fabric_directory=`` (a ``FabricShardPublisher`` per process) waits
-    for ROADMAP A15 and raises NotImplementedError.
+    for ROADMAP A15b and raises NotImplementedError.
     """
     if fabric_directory is not None:
         raise NotImplementedError(
-            f"fabric_directory= is not ported yet ({A15}: the fabric's "
+            f"fabric_directory= is not ported yet ({A15B}: the fabric's "
             "FabricShardPublisher); publish through a ShardedViewPublisher "
             "on a single-process mesh"
         )

@@ -1,4 +1,7 @@
-"""ctypes loader for the native superstep packer (``csrc/packer.cc``).
+"""ctypes loader for the native superstep packer (``csrc/packer.cc``): the
+one-shot ASAP and first-fit loops, and the restartable windowed first-fit
+(``assign_ff_create`` / ``feed`` / ``finish`` / ``destroy``) that the
+migration engine's front half runs (``migrate/assign.py``).
 
 Built with g++ at first use (:mod:`analyzer_tpu_torch.native_build`).
 :func:`load` returns None only when no g++ is installed — the schedulers in
@@ -47,6 +50,17 @@ def load() -> ctypes.CDLL | None:
                 ctypes.c_int64, _I64P, _I64P, _I64P,
             ]
             lib.assign_batches_first_fit.restype = None
+            lib.assign_ff_create.argtypes = [ctypes.c_int64, ctypes.c_int64]
+            lib.assign_ff_create.restype = ctypes.c_void_p
+            lib.assign_ff_feed.argtypes = [
+                ctypes.c_void_p, _I32P, ctypes.c_int64, _U8P, ctypes.c_int64,
+                ctypes.c_int64, _I64P, _I64P, _I64P,
+            ]
+            lib.assign_ff_feed.restype = ctypes.c_int64
+            lib.assign_ff_finish.argtypes = [ctypes.c_void_p, _I64P]
+            lib.assign_ff_finish.restype = ctypes.c_int64
+            lib.assign_ff_destroy.argtypes = [ctypes.c_void_p]
+            lib.assign_ff_destroy.restype = None
             _lib = lib
         return _lib
 
@@ -120,3 +134,95 @@ def assign_batches_first_fit(
         progress.ctypes.data_as(_I64P) if progress is not None else _I64P(),
     )
     return out, out_slot
+
+
+# -- the windowed restartable first-fit (migrate/assign.py's native path) --
+def _check_min_buffer(name: str, buf: np.ndarray, min_size: int) -> None:
+    """The windowed loop writes int64 entries at ABSOLUTE stream positions
+    through the raw pointer, so a buffer must hold at least ``min_size``."""
+    if buf.dtype != np.int64 or buf.size < min_size or not buf.flags["C_CONTIGUOUS"]:
+        raise ValueError(
+            f"{name} must be a C-contiguous int64 array of size >= "
+            f"{min_size}, got dtype={buf.dtype} size={buf.size} "
+            f"contiguous={buf.flags['C_CONTIGUOUS']}"
+        )
+
+
+def assign_ff_create(lib: ctypes.CDLL, capacity: int, n_hint: int = 0) -> int:
+    """A restartable first-fit state handle (``n_hint`` pre-sizes the player
+    frontier; 0 -> 1024, it grows either way). Release it with
+    :func:`assign_ff_destroy`."""
+    if capacity < 1:
+        raise ValueError(f"capacity must be >= 1, got {capacity}")
+    handle = lib.assign_ff_create(int(capacity), int(n_hint))
+    if not handle:
+        raise MemoryError("assign_ff_create returned NULL")
+    return handle
+
+
+def assign_ff_feed(
+    lib: ctypes.CDLL,
+    handle: int,
+    idx_window: np.ndarray,
+    ratable_window: np.ndarray,
+    lo: int,
+    hi: int,
+    out_batch: np.ndarray,
+    out_slot: np.ndarray,
+    progress: np.ndarray | None = None,
+) -> int:
+    """Consumes stream slice ``[lo, hi)``: ``idx_window`` is its
+    window-local ``[hi - lo, slots]`` int32 player rows, ``ratable_window``
+    its ``[hi - lo]`` uint8 gate; ``out_batch`` / ``out_slot`` /
+    ``progress`` hold absolute positions. Runs with the GIL released and
+    publishes ``progress[0]`` with release stores every 2048 matches and
+    at the end. Returns ``hi - lo``; raises on a slice that does not
+    continue the last one."""
+    n = hi - lo
+    if n < 0:
+        raise ValueError(f"feed window [{lo}, {hi}) is negative")
+    idx = np.ascontiguousarray(idx_window, dtype=np.int32)
+    if idx.ndim != 2 or idx.shape[0] != n:
+        raise ValueError(f"idx_window must be [{n}, slots], got shape {idx.shape}")
+    rat = np.ascontiguousarray(ratable_window, dtype=np.uint8)
+    if rat.shape != (n,):
+        raise ValueError(f"ratable_window must be [{n}], got shape {rat.shape}")
+    _check_min_buffer("out_batch", out_batch, hi)
+    _check_min_buffer("out_slot", out_slot, hi)
+    if progress is not None:
+        _check_min_buffer("progress", progress, 2)
+    if n == 0:
+        return 0
+    consumed = lib.assign_ff_feed(
+        handle, idx.ctypes.data_as(_I32P), idx.shape[1],
+        rat.ctypes.data_as(_U8P), lo, hi,
+        out_batch.ctypes.data_as(_I64P), out_slot.ctypes.data_as(_I64P),
+        progress.ctypes.data_as(_I64P) if progress is not None else _I64P(),
+    )
+    if consumed != n:
+        raise ValueError(
+            f"feed slices must be contiguous (native loop refused window "
+            f"[{lo}, {hi}))"
+        )
+    return consumed
+
+
+def assign_ff_finish(lib: ctypes.CDLL, handle: int,
+                     progress: np.ndarray | None = None) -> int:
+    """Publishes (matches assigned, batches used) into ``progress`` when
+    given and returns batches used. Idempotent: callable mid-stream to read
+    the high-water batch count."""
+    if progress is not None:
+        _check_min_buffer("progress", progress, 2)
+    used = lib.assign_ff_finish(
+        handle, progress.ctypes.data_as(_I64P) if progress is not None else _I64P()
+    )
+    if used < 0:
+        raise ValueError("assign_ff_finish on a null handle")
+    return used
+
+
+def assign_ff_destroy(lib: ctypes.CDLL, handle: int) -> None:
+    """Frees the state; safe on a handle never finished, once per create."""
+    if handle:
+        lib.assign_ff_destroy(handle)

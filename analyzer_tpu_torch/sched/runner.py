@@ -29,7 +29,9 @@ the consumer thread ``feed.transfer`` (the slab's copy to the device),
 ``batch.compute`` (the chunk's launches, and with ``collect`` the start of
 its outputs' copy back: enqueue cost on the card) and, with ``collect``,
 ``batch.fetch`` around the wait for the previous chunk's outputs — where
-device time surfaces on the host. Each run sets the ``sched.occupancy``
+device time surfaces on the host; with a ``view_publisher``, the throttled
+publish at each chunk boundary runs in a ``view.publish`` span (as the
+mesh's does). Each run sets the ``sched.occupancy``
 gauge and adds its supersteps to ``sched.steps_total``; device memory is
 sampled (throttled) at chunk boundaries.
 """
@@ -280,18 +282,24 @@ def _flat(fused_flat: list) -> np.ndarray:
 
 
 def _consume(produce, state, pad_row, cfg, fuse, collect, on_chunk, depth,
-             tier=None, view_publisher=None, end_step=None):
-    """The consumer loop of both runners: dispatches every chunk that
-    ``produce`` stages (on the Prefetcher's thread), in place on
+             tier=None, view_publisher=None, end_step=None, admit=None,
+             on_dispatched=None, final_publish=True):
+    """The consumer loop of the runners and of the migration engine
+    (``migrate/engine.py``): dispatches every chunk that ``produce`` stages
+    (on the Prefetcher's thread), in place on
     ``state.table`` — the hot table when ``tier`` is given — and publishes
-    through ``view_publisher`` at chunk boundaries (throttled) and at the
-    end (always). Returns ``(state, outs, fused_flat, totals)``: the final
-    state (tiered: the logical full table, reconstructed), the chunks'
-    packed outputs when collecting, the fused path's padded slot->match
-    rows (fused + collect, else None) and its planner totals.
-    ``end_step()`` gives the ``start`` argument of the last
+    through ``view_publisher`` at chunk boundaries (throttled) and, with
+    ``final_publish``, at the end (always). Returns ``(state, outs,
+    fused_flat, totals)``: the final state (tiered: the logical full table,
+    reconstructed), the chunks' packed outputs when collecting, the fused
+    path's padded slot->match rows (fused + collect, else None) and its
+    planner totals. ``end_step()`` gives the ``start`` argument of the last
     ``batch.fetch`` span, read at the end (the streamed schedule's length
-    is known only then)."""
+    is known only then).
+
+    ``admit(start)`` runs before each chunk's transfer and may block (the
+    migration engine's admission gate); ``on_dispatched(start, stop)``
+    runs after each chunk's dispatch, before ``on_chunk``."""
     tracer = get_tracer()
     table = state.table
     device = table.device
@@ -305,6 +313,8 @@ def _consume(produce, state, pad_row, cfg, fuse, collect, on_chunk, depth,
     pending = None  # chunk k-1's outputs, fetched after dispatching chunk k
     with Prefetcher(produce, depth=depth or DEFAULT_DEPTH) as pf:
         for start, stop, staged in pf:
+            if admit is not None:
+                admit(start)
             slab = staged if fuse is None and tier is None else staged.slab
             # The port's H2D copy: issued here, on the consumer's stream
             # (sched/feed.py), where the JAX package's producer issues it.
@@ -338,6 +348,8 @@ def _consume(produce, state, pad_row, cfg, fuse, collect, on_chunk, depth,
                     with tracer.span("batch.fetch", cat="sched", start=start):
                         outs.append(pending.result())
                 pending = fetch
+            if on_dispatched is not None:
+                on_dispatched(start, stop)
             if on_chunk is not None:
                 # Tiered: the hook gets the logical full state (cold tier
                 # + resident written rows).
@@ -349,12 +361,13 @@ def _consume(produce, state, pad_row, cfg, fuse, collect, on_chunk, depth,
                 # Throttled, and BEFORE the next chunk updates the table in
                 # place: the publisher takes its own copy here or not at
                 # all.
-                if tier is not None:
-                    tier.maybe_publish_view(view_publisher, table)
-                else:
-                    view_publisher.maybe_publish_state(state)
+                with tracer.span("view.publish", cat="sched", start=start):
+                    if tier is not None:
+                        tier.maybe_publish_view(view_publisher, table)
+                    else:
+                        view_publisher.maybe_publish_state(state)
             maybe_sample_device_memory()  # chunk-boundary memory gauges
-    if view_publisher is not None:  # the final table, unthrottled
+    if view_publisher is not None and final_publish:  # unthrottled
         if tier is not None:
             tier.publish_view(view_publisher, table)
         else:
@@ -561,7 +574,7 @@ class _StreamFeed:
     SENTINEL = np.iinfo(np.int64).min
 
     def __init__(self, stream, b, spc, team, pad_row, fuse, collect, pin,
-                 poll_interval, tier=None, run=None):
+                 poll_interval, tier=None, run=None, fillers=None):
         n = stream.n_matches
         self.tier = tier
         self.run = run  # a ShardedRun: windows are routed for the mesh
@@ -571,7 +584,10 @@ class _StreamFeed:
         self.progress = np.zeros(2, np.int64)
         self.out_b = np.full(n, self.SENTINEL, np.int64)
         self.out_s = np.full(n, self.SENTINEL, np.int64)
-        self.fillers = np.flatnonzero(~stream.ratable)
+        # The non-ratable matches backfilled into free slots (the migration
+        # engine's feed passes none: its assigner places them inline).
+        self.fillers = (np.flatnonzero(~stream.ratable) if fillers is None
+                        else fillers)
         steps = max(-(-n // b) + 2, 2)
         self.slot_map = np.full(steps * b, -1, np.int32)  # slot -> match
         self.fill_count = np.zeros(steps, np.int32)  # ratable matches per batch

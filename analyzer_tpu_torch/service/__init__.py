@@ -12,8 +12,8 @@ a write-behind mirror, not the source of truth during a batch).
 Pluggable edges: ``Broker`` (in-memory always; pika adapter when installed)
 and the match store (in-memory object graphs, or ``SqlStore`` — the
 reference's reflected-SQL layer on DB-API, sqlite tested end to end, MySQL
-via gated drivers). The partitioned brokers of the JAX package wait for
-ROADMAP A15.
+via gated drivers), and the partitioned brokers with priority lanes and
+the admission controller (``service/broker.py``).
 """
 
 from analyzer_tpu_torch.service.broker import Broker, InMemoryBroker, Message

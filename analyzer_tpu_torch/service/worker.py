@@ -421,11 +421,15 @@ class Worker:
         """Samples the broker's ready depth into the
         ``broker.queue_depth{queue=}`` gauge (plus the unlabeled
         process gauge) so soak/production backpressure is visible on
-        /statusz (the JAX worker's per-partition series come with the
-        partitioned brokers, ROADMAP A15). Throttled on the worker clock — on AMQP
-        the depth is a passive-declare round trip, which a 100 Hz poll
-        loop must not pay per iteration. Best-effort: a broker blip
-        here must not take down the consume loop."""
+        /statusz. On a partitioned broker the ``{queue=}`` series is the
+        AGGREGATE across every partition and lane (``qsize`` owns that
+        sum), and each partition / lane also emits its own
+        ``broker.queue_depth{queue=,partition=,lane=}`` series, so /statusz
+        shows the skew (bounded by the registry's label-cardinality cap).
+        Throttled on the worker clock — on AMQP the depth is a
+        passive-declare round trip, which a 100 Hz poll loop must not pay
+        per iteration. Best-effort: a broker blip here must not take down
+        the consume loop."""
         qsize = getattr(self.broker, "qsize", None)
         if qsize is None:
             return
@@ -444,6 +448,20 @@ class Worker:
         reg = get_registry()
         reg.gauge("broker.queue_depth").set(depth)
         reg.gauge("broker.queue_depth", queue=self.config.queue).set(depth)
+        partition_depths = getattr(self.broker, "partition_depths", None)
+        if partition_depths is None:
+            return
+        try:
+            per_part = partition_depths(self.config.queue)
+        except Exception:  # noqa: BLE001 — observability is best-effort
+            logger.debug("broker partition_depths probe failed", exc_info=True)
+            return
+        for part, lanes in per_part.items():
+            for lane, lane_depth in lanes.items():
+                reg.gauge(
+                    "broker.queue_depth",
+                    queue=self.config.queue, partition=part, lane=lane,
+                ).set(lane_depth)
 
     def _slo_tick(self) -> None:
         """One throttled pass of the live SLO plane, on the consumer
@@ -1289,8 +1307,9 @@ class Worker:
         right after ``stats()`` carries the same picture.
         ``tests/test_service.py::TestStats`` pins the key schema — a
         dropped key here silently breaks a metrics scraper. The
-        ``migration`` and ``fabric`` blocks are None until their planes
-        are ported (ROADMAP A13, A15); ``slo`` is the SLO plane's digest
+        ``migration`` block is None until a backfill has run in this
+        process (:meth:`_migration_block`); the ``fabric`` block is None
+        until the fabric is ported (ROADMAP A15b); ``slo`` is the SLO plane's digest
         (None with ``slo_plane=False``) and ``quality`` the calibration
         ledger's (None with ``quality=False``)."""
         # The engine is built lazily at the first flush, but the lag is
@@ -1332,9 +1351,9 @@ class Worker:
                 self.query_engine.stats()
                 if self.query_engine is not None else None
             ),
-            # The migration block: None until the migration engine is
-            # ported (ROADMAP A13) and a backfill has run in this process.
-            "migration": None,
+            # The migration block: None until a backfill has run in this
+            # process (the progress record's phase leaves "idle").
+            "migration": self._migration_block(),
             # The live SLO plane's digest (None when slo_plane=False):
             # what's burning, plus the shadow audit's counters when
             # auditing is on — /sloz and /historyz carry the detail.
@@ -1354,10 +1373,21 @@ class Worker:
             "quality": (
                 self.quality.stats() if self.quality is not None else None
             ),
-            # Fabric membership: None until ROADMAP A15 ports the fabric
+            # Fabric membership: None until ROADMAP A15b ports the fabric
             # (the JAX worker reports None off-fabric).
             "fabric": None,
         }
+
+    def _migration_block(self) -> dict | None:
+        """The ``stats()['migration']`` block: the process-wide migration
+        progress record, with the ETA derived from THIS worker's history
+        rings and clock (virtual under the soak). None when no migration
+        has run — scrapers key on presence, not on worker flavor."""
+        from analyzer_tpu_torch.migrate.progress import get_migration_progress
+
+        return get_migration_progress().snapshot(
+            history=self.history, now=self.clock()
+        )
 
     @property
     def pipeline_degraded(self) -> bool:

@@ -193,11 +193,34 @@ lines:
      decoder window staged onto the card by ``stage_ingest_window`` (the
      next ones decoded while earlier copies may still run) and fetched
      back at the end equals its host columns and the parser's rows;
+ 15a. migrate: the zero-downtime re-rate (``migrate``) of that 1M-prefix
+     CSV over the whole player table: ``run_migration(kernel="fused")``
+     into a ``LineageManager`` over a live ``ViewPublisher`` primed with
+     the seed table, under an ``AdmissionController`` with no live backlog
+     (its halvings printed), every ``fused_window`` launch timed by CUDA
+     events: the migrated and the served (cut over) tables equal [prefix]'s
+     bit for bit, the consumer loop split as [main]'s; a run killed at half
+     its steps and resumed from its checkpoint, and the tiered run at
+     ``hot_rows=262144``, bit for bit too; in subprocesses ``cli migrate
+     --kernel fused`` on the first 100,000 matches against ``cli rate``
+     (checkpoint tables bit for bit) and ``cli bench --migrate`` at 50,000
+     (one repeat, a 200,000-match assign microbench): streamed,
+     bit-identical, the native assigner, with its matches/s, ttfd, cutover
+     pause, live p99 and the assign rates printed;
  16. oracle: a seeded sample of 256 real matches from the first step of
      the first 16 fused windows of a [bench]-sized schedule, rated by the
      CUDA kernel with collect, against the port's 50-digit mpmath oracle
      (``ops.oracle``): shared and per-mode mu / sigma and the quality
      within tests/test_oracle.py's relative bounds (1e-5, 1e-4, 1e-5);
+ 16a. soak: two closed-loop soaks (``loadgen``) on the card at the rig
+     widths (1,000,000 players, 2,000 matches and 500 queries a virtual
+     second, batches of 500, queries over ``/v1/*``), 1 virtual second,
+     not realtime: A on one queue and one serve shard, B on four broker
+     partitions with priority lanes, four serve shards and a
+     100,000-match migration under the load. B's deterministic block
+     equals A's byte for byte, its migrated lineage its from-scratch
+     reference, both pass ``soak_violations``; matches/s, the query
+     workload's p50 / p99 per kind and the migration block are printed;
  17. timing: the fused window per window at the main path's shapes
      (``python -m analyzer_tpu_torch.experiments.window_timing``'s
      measurement: windows cut to 1..16 looped steps for the per-step
@@ -205,8 +228,9 @@ lines:
      with a cluster of 16), beside its plain version and its bound; then
      [main]'s fused_window by CUDA events x launches beside its profiler
      attribution; one ``{"kernels": [...]}`` line: per kernel its launches on its path
-     (the fused window's on the tiered path, the DB lane and the worker
-     phase's ``cli rate --db`` and [bench]'s run beside them; the row
+     (the fused window's on the tiered path, the DB lane, the worker
+     phase's ``cli rate --db``, [bench]'s run and [migrate]'s runs — with
+     the migration's ms a window by CUDA events — beside them; the row
      scatter's on [mesh]'s sharded re-rate, at its shapes, with the
      scatter-floor experiment's numbers as ``floor_*``), the error
      against its plain version, its time at its path's shapes beside the
@@ -235,6 +259,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -372,6 +397,22 @@ MESH_NCCL_MATCHES = 20_000
 MESH_TRAIN_MATCHES = 20_000
 MESH_TRAIN_PLAYERS = 4_000
 MESH_TRAIN_ATOL = 1e-5
+# [migrate]: the zero-downtime re-rate of [ingest]'s 1M-prefix CSV over the
+# whole player table; cli migrate against cli rate on its first
+# MIGRATE_CLI_MATCHES matches; cli bench --migrate at its default 50,000
+# matches with one repeat and a 200,000-match assign microbench (its
+# defaults are 3 and 1M: depth cuts for time).
+MIGRATE_CLI_MATCHES = 100_000
+MIGRATE_BENCH_REPEATS = 1
+MIGRATE_ASSIGN_MATCHES = 200_000
+# [soak]: the rig soak's widths (docs/OPERATIONS.md, "Running and reading a
+# soak"), queries over /v1/*, cut to SOAK_SECONDS virtual seconds and not
+# realtime (a depth cut: a virtual second of run A at these widths took
+# ~25-28 s of wall on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md); run B
+# migrates SOAK_MIGRATE_MATCHES matches under the load.
+SOAK_WIDTHS = dict(n_players=1_000_000, qps=2000.0, query_qps=500.0, batch_size=500)
+SOAK_SECONDS = 1.0
+SOAK_MIGRATE_MATCHES = 100_000
 
 
 def log(msg: str) -> None:
@@ -2429,6 +2470,270 @@ def oracle_phase(dev, cfg, n_matches: int) -> dict:
     return worst
 
 
+def last_span_us(tracer, t0: float) -> float:
+    """The end of the last span this thread emitted after tracer time
+    ``t0`` (what follows it — a final publish, a checkpoint, a cutover —
+    is outside a consumer loop's split)."""
+    me = threading.get_ident() % 1_000_000
+    return max((e["ts"] + e["dur"] for e in tracer.events()
+                if e.get("ph") == "X" and e["tid"] == me and e["ts"] >= t0),
+               default=t0)
+
+
+def migrate_phase(cli, tmp: str, dev, cfg, state0, csv_path: str, pre,
+                  a_pre: np.ndarray, tier_hot: int) -> dict:
+    """Phase [migrate]: the zero-downtime re-rate of ``csv_path`` (``pre``
+    as CSV) over the whole player table. ``run_migration(kernel="fused")``
+    into a ``LineageManager`` over a live ``ViewPublisher`` primed with the
+    seed table, under an ``AdmissionController`` with no live backlog (its
+    halvings counted), each ``fused_window`` launch timed by CUDA events:
+    the cutover's table must equal [prefix]'s bit for bit. Then a bounded
+    run killed at half the steps and resumed from its checkpoint, and the
+    tiered run at ``tier_hot``: both bit for bit. In subprocesses, ``cli
+    migrate --kernel fused`` on the first ``MIGRATE_CLI_MATCHES`` matches
+    against ``cli rate`` (checkpoint tables bit for bit), and ``cli bench
+    --migrate``."""
+    from analyzer_tpu_torch.io.checkpoint import load_checkpoint
+    from analyzer_tpu_torch.io.csv_codec import save_stream_csv
+    from analyzer_tpu_torch.kernels import fused_window as fw
+    from analyzer_tpu_torch.migrate import LineageManager, run_migration
+    from analyzer_tpu_torch.obs import get_registry, reset_tracer
+    from analyzer_tpu_torch.serve import ViewPublisher
+    from analyzer_tpu_torch.service.broker import AdmissionController
+
+    t_phase = time.perf_counter()
+    with open(csv_path, "rb") as f:
+        data = f.read()
+    n = state0.n_players
+    live = ViewPublisher()  # device=None: the card
+    live.publish_state(state0)
+    lineage = LineageManager(live)
+    real, events = fw.fused_window, []
+
+    def timed(*args, **kw):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = real(*args, **kw)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    throttled0 = get_registry().counter("migrate.throttled_total").value
+    fw.launches = 0
+    fw.fused_window = timed
+    tracer = reset_tracer()
+    counters0 = feed_counters()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u0 = tracer_us(tracer)
+        report = run_migration(
+            state0, data, cfg, lineage=lineage, kernel="fused",
+            admission=AdmissionController(), live_backlog=lambda: 0,
+        )
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        fw.fused_window = real
+    launches = fw.launches
+    st = report.stats
+    ms = float(np.mean([a.elapsed_time(b) for a, b in events])) if events else None
+    got = report.state.table.cpu().numpy()
+    view = live.current()
+    served = view.host_table()[:n]
+    same = np.array_equal(got, a_pre, equal_nan=True)
+    same_served = np.array_equal(served, a_pre[:n], equal_nan=True)
+    log(f"[migrate] run_migration(kernel='fused') of {st['matches']} CSV matches "
+        f"({len(data)} bytes) over {n} players: wall {wall:.3f} s, "
+        f"{st['matches'] / wall:,.0f} matches/s, ttfd_s {st['ttfd_s']:.4f}; "
+        f"{st['n_steps']} steps x B={st['batch_size']}, occupancy "
+        f"{st['occupancy']:.4f}, plan windows {st['prefix_windows']} of "
+        f"{st['window_rows']} rows; assign_native {st['assign_native']}; windows "
+        f"{st['windows']}, fused_window launches {launches}, {ms:.5f} ms a call "
+        f"(CUDA events around each of the {len(events)} calls; the card waits on "
+        f"staging, so each reading holds the wrapper's host time too); admission (one quota "
+        f"a chunk, no live backlog): halvings {st['admission_halvings']}, throttled "
+        f"{int(get_registry().counter('migrate.throttled_total').value - throttled0)}; "
+        f"cutover pause {report.cutover_pause_ms} ms, live v{view.version}; table "
+        f"bit-identical to [prefix]'s: {same}; served table = it: {same_served}")
+    log(runner_split("[migrate]", tracer, u0, last_span_us(tracer, u0), counters0,
+                     hooks=("view.publish",)))
+    if not (report.finished and st["streamed"] and same and same_served):
+        raise AssertionError("[migrate]: the migrated or served table differs from [prefix]'s")
+    if launches == 0 or launches != st["windows"]:
+        raise AssertionError(f"[migrate]: {launches} launches for {st['windows']} windows")
+    if st["assign_native"] is not True or view.version != 2:
+        raise AssertionError(f"[migrate]: assign_native {st['assign_native']}, "
+                             f"live version {view.version}")
+    del report, got
+
+    # Kill and resume: a bounded run to about half the steps, then --resume.
+    ck = os.path.join(tmp, "migrate.npz")
+    half = max(1, st["n_steps"] // 2)
+    fw.launches = 0
+    t0 = time.perf_counter()
+    bounded = run_migration(state0, data, cfg, checkpoint=ck, stop_after=half,
+                            kernel="fused")
+    mid = load_checkpoint(ck, device="cpu")
+    resumed = run_migration(None, data, cfg, checkpoint=ck, resume=True,
+                            kernel="fused")
+    torch.cuda.synchronize()
+    t_resume = time.perf_counter() - t0
+    same = np.array_equal(resumed.state.table.cpu().numpy(), a_pre, equal_nan=True)
+    log(f"[migrate] kill-and-resume: stopped at step {mid.step_cursor} (asked "
+        f"{half}) with a checkpoint, resumed to the end: {t_resume:.3f} s for both, "
+        f"fused_window launches {fw.launches}; finished {bounded.finished} / "
+        f"{resumed.finished}; table bit-identical to the one-shot migration: {same}")
+    if bounded.finished or not resumed.finished or not same or mid.step_cursor < half:
+        raise AssertionError("[migrate]: the resumed migration differs from the one-shot run")
+    del bounded, resumed, mid
+
+    # The tiered migration.
+    fw.launches = 0
+    t0 = time.perf_counter()
+    tiered = run_migration(state0, data, cfg, kernel="fused", hot_rows=tier_hot)
+    torch.cuda.synchronize()
+    t_tier = time.perf_counter() - t0
+    same = np.array_equal(tiered.state.table.cpu().numpy(), a_pre, equal_nan=True)
+    log(f"[migrate] tiered, hot_rows={tier_hot}: wall {t_tier:.3f} s "
+        f"({t_tier / wall:.2f}x the resident migration), windows "
+        f"{tiered.stats['windows']}, fused_window launches {fw.launches}; table "
+        f"bit-identical: {same}")
+    if not same or fw.launches == 0:
+        raise AssertionError("[migrate]: the tiered migration differs from [prefix]'s")
+    del tiered
+
+    # cli migrate against cli rate, both in subprocesses, on a shorter prefix.
+    small = os.path.join(tmp, "migrate_small.csv")
+    save_stream_csv(small, pre.slice(0, min(MIGRATE_CLI_MATCHES, pre.n_matches)))
+    ck_m, ck_r = os.path.join(tmp, "cli_migrate.npz"), os.path.join(tmp, "cli_rate.npz")
+    with ThreadPoolExecutor(2) as pool:  # two processes, side by side
+        mig_run = pool.submit(counted_cli, "migrate", "--csv", small, "--kernel",
+                              "fused", "--checkpoint", ck_m)
+        rate_run = pool.submit(counted_cli, "rate", "--csv", small, "--kernel",
+                               "fused", "--checkpoint", ck_r)
+        line_m, counts_m, wall_m = mig_run.result()
+        line_r, counts_r, wall_r = rate_run.result()
+    a = load_checkpoint(ck_m, device="cpu").state.table.numpy()
+    b = load_checkpoint(ck_r, device="cpu").state.table.numpy()
+    same = np.array_equal(a, b, equal_nan=True)
+    log(f"[migrate] cli migrate --kernel fused ({wall_m:.1f} s): {json.dumps(line_m)}; "
+        f"fused_window launches {counts_m['fused_window_launches']}")
+    log(f"[migrate] cli rate --kernel fused on the same {line_m['matches']} matches "
+        f"(beside it, {wall_r:.1f} s, launches {counts_r['fused_window_launches']}): "
+        f"checkpoint tables bit-identical: {same}")
+    if not same or counts_m["fused_window_launches"] == 0 or not line_m["streamed"]:
+        raise AssertionError("[migrate]: cli migrate's checkpoint differs from cli rate's")
+
+    # cli bench --migrate.
+    line, counts, wall_b = counted_cli(
+        "bench", "--migrate",
+        env={"BENCH_REPEATS": str(MIGRATE_BENCH_REPEATS),
+             "BENCH_ASSIGN_MATCHES": str(MIGRATE_ASSIGN_MATCHES),
+             "BENCH_KERNEL": "fused"},
+    )
+    log(f"[migrate] {json.dumps(line)}")
+    mig, assign = line["migrate"], line["assign"]
+    log(f"[migrate] cli bench --migrate ({mig['matches']} matches, {wall_b:.1f} s): "
+        f"{line['value']:,.1f} matches/s, ttfd_s {mig['ttfd_s']}, cutover pause "
+        f"{mig['cutover_pause_ms']} ms, live p50 / p99 during the migration "
+        f"{line['latency_ms']['p50']} / {line['latency_ms']['p99']} ms (idle p99 "
+        f"{mig['idle_p99_ms']}); assign front half ({assign['matches']} matches): "
+        f"native {assign['native']} {assign['matches_per_sec']:,.1f} matches/s, "
+        f"python {assign['python_matches_per_sec']:,.1f} ({assign['speedup_over_python']}x); "
+        f"fused_window launches {counts['fused_window_launches']}; device {line['device']}")
+    if not (mig["streamed"] and mig["bit_identical"] and assign["native"]
+            and counts["fused_window_launches"] > 0):
+        raise AssertionError(f"[migrate]: bench --migrate {mig}")
+    log(f"[migrate] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"launches_migrate": launches, "migrate_call_ms": ms,
+            "launches_migrate_cli": counts_m["fused_window_launches"],
+            "launches_migrate_bench": counts["fused_window_launches"]}
+
+
+def soak_phase(dev) -> None:
+    """Phase [soak]: two closed-loop soaks on the card at the rig widths
+    (``SOAK_WIDTHS``), queries over ``/v1/*``, ``SOAK_SECONDS`` virtual
+    seconds, not realtime: A on one queue and one serve shard, B on
+    ``broker_partitions=4`` with priority lanes, ``serve_shards=4`` and a
+    ``SOAK_MIGRATE_MATCHES``-match migration under the load. B's
+    deterministic block must equal A's byte for byte, its migrated lineage
+    its from-scratch reference, and both artifacts must pass
+    ``soak_violations``. Prints matches/s, the query workload's p50 / p99
+    per kind and the migration block."""
+    from analyzer_tpu_torch.loadgen import SoakConfig, SoakDriver
+    from analyzer_tpu_torch.obs.slo import soak_violations
+
+    t_phase = time.perf_counter()
+    base = dict(seed=SEED, duration_s=SOAK_SECONDS, tick_s=1.0, use_http=True,
+                **SOAK_WIDTHS)
+    arts = {}
+    for tag, extra in (("A", {}), ("B", dict(
+            broker_partitions=4, priority_lanes=True, serve_shards=4,
+            migrate=True, migrate_matches=SOAK_MIGRATE_MATCHES))):
+        driver = SoakDriver(SoakConfig(**base, **extra))
+        lat: dict = {}
+        in_queries = [False]
+        for kind, name in (("ratings", "get_ratings"), ("winprob", "win_probability"),
+                           ("leaderboard", "leaderboard"), ("tiers", "tiers")):
+            def wrap(fn=getattr(driver.client, name), kind=kind):
+                def call(*a):
+                    t = time.perf_counter()
+                    out = fn(*a)
+                    if in_queries[0]:
+                        lat.setdefault(kind, []).append((time.perf_counter() - t) * 1e3)
+                    return out
+                return call
+            setattr(driver.client, name, wrap())
+        issue = driver._issue_queries
+
+        def queries(*a, issue=issue):
+            in_queries[0] = True
+            try:
+                return issue(*a)
+            finally:
+                in_queries[0] = False
+
+        driver._issue_queries = queries
+        t0 = time.perf_counter()
+        try:
+            art = driver.run()
+        finally:
+            driver.close()
+        wall = time.perf_counter() - t0
+        det = art["deterministic"]
+        per_kind = "; ".join(
+            f"{k} p50 {np.percentile(v, 50):.3f} / p99 {np.percentile(v, 99):.3f} ms x{len(v)}"
+            for k, v in sorted(lat.items()))
+        log(f"[soak] {tag} ({', '.join(f'{k}={v}' for k, v in extra.items()) or 'one queue, one shard'}): "
+            f"{det['matches_rated']} matches rated of {det['matches_published']} over "
+            f"{det['ticks']} virtual s, {art['value']:,.2f} matches/s (wall "
+            f"{art['measured']['wall_s']} s, run {wall:.1f} s); queries "
+            f"{art['measured']['queries_per_sec']:,.2f}/s, all kinds p50 / p99 "
+            f"{art['latency_ms']['p50']} / {art['latency_ms']['p99']} ms; {per_kind}; "
+            f"queue depth max {det['queue_depth_max']}, view lag max "
+            f"{det['view_lag_ticks_max']} ticks, dead letters {det['dead_letters']}, "
+            f"retraces {det['retraces_steady']}, drained {det['drained']}; "
+            f"slo {art['slo']}")
+        if "migration" in art:
+            log(f"[soak] {tag} migration: {json.dumps(art['migration'])}")
+        violations = soak_violations(art)
+        if violations or not art["slo"]["pass"]:
+            raise AssertionError(f"[soak] {tag}: {violations or art['slo']['violations']}")
+        arts[tag] = art
+    mig = arts["B"]["migration"]
+    same = json.dumps(arts["A"]["deterministic"], sort_keys=True) == json.dumps(
+        arts["B"]["deterministic"], sort_keys=True)
+    log(f"[soak] B's deterministic block equal to A's byte for byte: {same}; B's "
+        f"migrated lineage equal to its from-scratch reference: "
+        f"{mig.get('bit_identical')}, served after the cutover: "
+        f"{mig.get('cutover_serves_migrated_table')}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if not (same and mig.get("finished") and mig.get("bit_identical")
+            and mig.get("cutover_serves_migrated_table")):
+        raise AssertionError("[soak]: B's block differs from A's, or its migration failed")
+
+
 def cli_sub(*argv) -> subprocess.CompletedProcess:
     """``python -m analyzer_tpu_torch.cli ARGV`` in a subprocess from the
     checkout's root."""
@@ -3201,9 +3506,16 @@ def main(argv=None) -> int:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
     try:
         ingest_phase(tmp, dev, pre)
+        # -- 15a. the migration, over [ingest]'s prefix CSV ------------------
+        migrate_counts = migrate_phase(cli, tmp, dev, cfg, state0,
+                                       os.path.join(tmp, "prefix.csv"), pre,
+                                       a_pre, tier_hot)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     oracle_phase(dev, cfg, args.bench_matches)
+
+    # -- 16a. the closed-loop soak ------------------------------------------
+    soak_phase(dev)
 
     # -- 17. kernel times at the main path's shapes (collect off) -------------
     slope = window_timing.measure(windows)
@@ -3254,6 +3566,10 @@ def main(argv=None) -> int:
             "launches_db": db_counts["launches_db"],
             "launches_worker_cli": worker_counts["launches_worker_cli"],
             "launches_bench": bench_counts["launches_bench"],
+            "launches_migrate": migrate_counts["launches_migrate"],
+            "migrate_call_ms": migrate_counts["migrate_call_ms"],
+            "launches_migrate_cli": migrate_counts["launches_migrate_cli"],
+            "launches_migrate_bench": migrate_counts["launches_migrate_bench"],
             "max_abs_err": worst_abs,
             "ms": ms,
             "plain_ms": plain_ms,

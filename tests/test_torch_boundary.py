@@ -57,7 +57,12 @@ def test_import_leaves_jax_and_reference_out():
         "             'experiments.service_bench', 'bench', 'ops.oracle',\n"
         "             'io.ingest', 'io._native_csv', 'models', 'models.elo',\n"
         "             'models.features', 'models.training', 'models.logistic',\n"
-        "             'models.mlp', 'models.calibration', 'obs.quality'):\n"
+        "             'models.mlp', 'models.calibration', 'obs.quality',\n"
+        "             'migrate', 'migrate.assign', 'migrate.engine',\n"
+        "             'migrate.lineage', 'migrate.progress', 'loadgen',\n"
+        "             'loadgen.driver', 'loadgen.matchmaker',\n"
+        "             'loadgen.outcomes', 'loadgen.shaper',\n"
+        "             'utils.ownership'):\n"
         "    assert 'analyzer_tpu_torch.' + name in sys.modules, name\n"
         # importing builds nothing, starts no thread and parses no argv
         "import threading\n"
