@@ -1,6 +1,6 @@
 """Command-line interface of the port: ``python -m analyzer_tpu_torch.cli
-synth | rate | migrate | serve | query | worker | soak | bench | metrics |
-history | trace | profile | elo | train | quality | fleet``.
+synth | rate | migrate | serve | query | worker | soak | fabric | bench |
+metrics | history | trace | profile | elo | train | quality | fleet``.
 
 Counterparts of the same subcommands of ``analyzer_tpu.cli``, with the JAX
 package's flags, defaults, error texts (exit 2) and JSON lines.
@@ -70,18 +70,22 @@ dispatch backfill into a staging view lineage, the atomic cutover, and
 checkpoint / resume (``--checkpoint`` / ``--checkpoint-every`` /
 ``--stop-after-steps`` / ``--resume``). ``soak`` is the closed-loop
 matchmaking soak (:mod:`analyzer_tpu_torch.loadgen`), exit 1 on an SLO
-violation; ``--out`` writes the ``SOAK_r*.json`` artifact.
+violation; ``--out`` writes the ``SOAK_r*.json`` artifact. ``soak
+--serve-http`` queries through the serve front door
+(:mod:`analyzer_tpu_torch.serve.frontdoor`); ``soak --hosts N`` runs the
+soak over N shard-owning fabric host subprocesses
+(:mod:`analyzer_tpu_torch.fabric`, a FABRIC-shaped artifact). ``fabric``
+brings up a standing fabric of host processes and prints one JSON line a
+host.
 
-``rate``, ``migrate``, ``serve``, ``worker``, ``soak``, ``bench``, ``elo``
-and ``train`` run on the card (``--device cuda``, the default) and refuse
-to start where there is none; ``--device cpu`` runs them on the CPU. ``rate --mesh N`` and ``train
+``rate``, ``migrate``, ``serve``, ``worker``, ``soak``, ``fabric``,
+``bench``, ``elo`` and ``train`` run on the card (``--device cuda``, the
+default) and refuse to start where there is none; ``--device cpu`` runs them on the CPU. ``rate --mesh N`` and ``train
 --mesh N`` run data-parallel over an N-shard mesh (``parallel/``; with the
 ``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID`` env, ``--mesh
 0`` runs one shard per process of a ``torch.distributed`` group, NCCL on
 the card and gloo on the CPU); ``serve --shards N`` and ``worker
---serve-shards N`` serve through the sharded plane. Not ported yet (exit
-2, naming the item): ``soak --hosts`` and ``--fabric-shards`` (ROADMAP
-A15b, the fabric) and ``soak --serve-http`` (ROADMAP A11c, the front door).
+--serve-shards N`` serve through the sharded plane.
 """
 
 from __future__ import annotations
@@ -96,10 +100,6 @@ import types
 import numpy as np
 
 from analyzer_tpu_torch.utils.profiling import PhaseTimer, trace
-
-#: The ROADMAP items the refused soak flags wait for.
-A15B = "ROADMAP A15b, the fabric"
-A11C = "ROADMAP A11c, the serve front door"
 
 
 def _load_stream(path: str):
@@ -1631,15 +1631,8 @@ def cmd_soak(args) -> int:
     from analyzer_tpu_torch.loadgen import SoakConfig, SoakDriver
     from analyzer_tpu_torch.loadgen.driver import write_artifact
 
-    if args.hosts is not None or args.fabric_shards is not None:
-        print(f"error: soak --hosts / --fabric-shards (the soak over a "
-              f"multi-process fabric) is not ported yet ({A15B})",
-              file=sys.stderr)
-        return 2
-    if args.serve_http:
-        print(f"error: soak --serve-http (the serve front door) is not "
-              f"ported yet ({A11C})", file=sys.stderr)
-        return 2
+    if args.hosts is not None:
+        return _cmd_soak_fabric(args)
     for flag in ("duration", "qps", "tick", "players", "batch_size",
                  "polls_per_tick", "serve_shards", "broker_partitions",
                  "audit_sample_denom", "migrate_matches"):
@@ -1653,6 +1646,10 @@ def cmd_soak(args) -> int:
         return 2
     if args.backfill_qps < 0:
         print("error: --backfill-qps must be >= 0", file=sys.stderr)
+        return 2
+    if args.serve_http and args.in_process:
+        print("error: --serve-http drives the HTTP socket path; it cannot "
+              "combine with --in-process", file=sys.stderr)
         return 2
     if args.backfill_qps > 0 and not args.priority_lanes:
         print("error: --backfill-qps needs --priority-lanes (backfill "
@@ -1682,6 +1679,7 @@ def cmd_soak(args) -> int:
         afk_rate=args.afk_rate,
         warmup=not args.no_warmup,
         use_http=not args.in_process,
+        serve_http=args.serve_http,
         serve_shards=args.serve_shards,
         broker_partitions=args.broker_partitions,
         priority_lanes=args.priority_lanes,
@@ -1724,6 +1722,156 @@ def cmd_soak(args) -> int:
         return 1
     return 0
 
+
+
+def _cmd_soak_fabric(args) -> int:
+    """``cli soak --hosts N``: the closed-loop soak over a REAL
+    multi-process fabric (:mod:`analyzer_tpu_torch.fabric`) — N
+    shard-owning host subprocesses on ``--device``, broker-partitioned
+    ingest, routed /v1/* queries, and a fleet Collector judging the
+    standard objectives across the hosts' obsd planes. The artifact's
+    deterministic block is bit-identical per (seed, config) at any
+    --hosts count (the FABRIC_BENCH shape)."""
+    from analyzer_tpu_torch.fabric.driver import (
+        FabricSoakConfig,
+        FabricSoakDriver,
+    )
+    from analyzer_tpu_torch.loadgen.driver import write_artifact
+
+    for flag in ("hosts", "duration", "qps", "tick", "players",
+                 "batch_size", "fabric_shards"):
+        if getattr(args, flag) <= 0:
+            print(f"error: --{flag.replace('_', '-')} must be positive",
+                  file=sys.stderr)
+            return 2
+    if args.query_qps < 0:
+        print("error: --query-qps must be >= 0 (0 = no read traffic)",
+              file=sys.stderr)
+        return 2
+    if args.fabric_shards < args.hosts:
+        print(
+            "error: --fabric-shards must be >= --hosts (every host "
+            "must own at least one shard)", file=sys.stderr,
+        )
+        return 2
+    device = _resolve_device(args, "soak")
+    if device is None:
+        return 2
+    cfg = FabricSoakConfig(
+        seed=args.seed,
+        duration_s=args.duration,
+        tick_s=args.tick,
+        qps=args.qps,
+        query_qps=args.query_qps,
+        n_players=args.players,
+        batch_size=args.batch_size,
+        n_shards=args.fabric_shards,
+        n_hosts=args.hosts,
+        team5_frac=args.team5_frac,
+        afk_rate=args.afk_rate,
+        warmup=not args.no_warmup,
+        trace=bool(args.trace or args.trace_events),
+        quality=not args.no_quality,
+        slo_plane=not args.no_slo_plane,
+        max_view_lag_ticks=args.max_view_lag_ticks,
+    )
+    driver = FabricSoakDriver(cfg, device=device)
+    try:
+        artifact = driver.run()
+    finally:
+        driver.close()
+    line = {
+        k: artifact[k]
+        for k in ("metric", "value", "latency_ms", "measured", "slo")
+    }
+    line["deterministic"] = artifact["deterministic"]
+    print(json.dumps(line))
+    if args.out:
+        write_artifact(artifact, args.out)
+        print(f"wrote fabric artifact to {args.out}", file=sys.stderr)
+    if not artifact["slo"]["pass"]:
+        for v in artifact["slo"]["violations"]:
+            print(f"SLO VIOLATION: {v}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def cmd_fabric(args) -> int:
+    """Brings up a standing fabric: N shard-owning host processes
+    (:mod:`analyzer_tpu_torch.fabric.process`, on ``--device``), each with
+    its own partitioned ingest, serve plane, obsd and ``/fabric/*``
+    control surface. Prints one JSON line per host once its listeners are
+    bound (the serve_url/control_url/obs_port a router or fleet Collector
+    needs), then runs until --duration wall seconds elapse or Ctrl-C, and
+    signals every host down on the way out."""
+    import tempfile
+
+    if args.hosts <= 0 or args.shards <= 0:
+        print("error: --hosts and --shards must be positive",
+              file=sys.stderr)
+        return 2
+    if args.shards < args.hosts:
+        print(
+            "error: --shards must be >= --hosts (every host must own "
+            "at least one shard)", file=sys.stderr,
+        )
+        return 2
+    device = _resolve_device(args, "fabric")
+    if device is None:
+        return 2
+    from analyzer_tpu_torch.fabric.driver import (
+        reap_fabric_hosts,
+        spawn_fabric_hosts,
+    )
+
+    rc = 0
+    with tempfile.TemporaryDirectory(prefix="fabric-cli-") as tmp:
+        exit_file = os.path.join(tmp, "exit")
+        base_spec = {
+            "n_shards": args.shards,
+            "n_hosts": args.hosts,
+            "seed": args.seed,
+            "n_players": args.players,
+            "batch_size": args.batch_size,
+            "max_wall_s": args.duration + 60.0,
+            "device": str(device),
+        }
+        hosts: list = []
+        try:
+            hosts = spawn_fabric_hosts(base_spec, tmp, exit_file)
+            for h in hosts:
+                print(json.dumps({
+                    "host": h["host"],
+                    "shards": list(range(h["host"], args.shards,
+                                         args.hosts)),
+                    "serve_url": h["serve_url"],
+                    "control_url": h["control_url"],
+                    "obs_port": h["obs_port"],
+                    "pid": h["pid"],
+                }))
+            sys.stdout.flush()
+            deadline = time.monotonic() + args.duration
+            try:
+                while time.monotonic() < deadline:
+                    for h in hosts:
+                        if h["proc"].poll() is not None:
+                            print(
+                                f"error: fabric host {h['host']} exited "
+                                f"rc={h['proc'].returncode}; see "
+                                f"{h['log_path']}", file=sys.stderr,
+                            )
+                            rc = 1
+                    if rc:
+                        break
+                    time.sleep(0.2)
+            except KeyboardInterrupt:
+                print("interrupt: signalling fabric down", file=sys.stderr)
+        except RuntimeError as err:
+            print(f"error: {err}", file=sys.stderr)
+            rc = 1
+        finally:
+            reap_fabric_hosts(hosts, exit_file)
+    return rc
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="analyzer_tpu_torch", description=__doc__)
@@ -2045,7 +2193,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     s.add_argument(
         "--serve-http", action="store_true",
-        help=f"not ported yet ({A11C}): exits 2",
+        help="route the query workload through the serve front door "
+        "(serve/frontdoor.py: keep-alive pipelined sockets + the native "
+        "response codec) instead of the worker's stdlib plane; the "
+        "deterministic block is bit-identical either way and the "
+        "artifact gains a `frontdoor` codec block",
     )
     s.add_argument(
         "--serve-shards", type=int, default=1, metavar="S",
@@ -2154,13 +2306,19 @@ def build_parser() -> argparse.ArgumentParser:
     )
     s.add_argument(
         "--hosts", type=int, metavar="N",
-        help=f"the soak over a multi-process fabric: not ported yet "
-        f"({A15B}): exits 2",
+        help="run the soak over a REAL multi-process fabric of N "
+        "shard-owning host subprocesses (analyzer_tpu_torch/fabric): "
+        "broker-partitioned ingest, routed /v1/* queries, fleet-scope "
+        "SLOs; the deterministic block is bit-identical per (seed, "
+        "config) at any N, and the artifact is FABRIC_BENCH-shaped. "
+        "Flags that configure the single-process pipeline shape "
+        "(--serve-shards, --broker-partitions, --migrate, --audit, ...) "
+        "do not apply",
     )
     s.add_argument(
-        "--fabric-shards", type=int, metavar="S",
-        help=f"fabric shard count for --hosts: not ported yet ({A15B}): "
-        "exits 2",
+        "--fabric-shards", type=int, default=4, metavar="S",
+        help="fabric shard count for --hosts (ownership: shard s -> "
+        "host s %% N; must be >= --hosts; default: 4)",
     )
     s.add_argument(
         "--device", default="cuda",
@@ -2168,6 +2326,39 @@ def build_parser() -> argparse.ArgumentParser:
         "refuses to start without a card) or cpu",
     )
     s.set_defaults(fn=cmd_soak)
+
+    s = sub.add_parser(
+        "fabric",
+        help="launch a standing multi-host rate fabric: N shard-owning "
+        "host processes with partitioned ingest, per-host serve "
+        "planes, and /fabric/* control surfaces",
+    )
+    s.add_argument(
+        "--hosts", type=int, default=2, metavar="N",
+        help="host process count (default: 2)",
+    )
+    s.add_argument(
+        "--shards", type=int, default=4, metavar="S",
+        help="shard count; ownership is shard s -> host s %% N, so S "
+        "must be >= --hosts (default: 4)",
+    )
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--players", type=int, default=400)
+    s.add_argument(
+        "--batch-size", type=int, default=64,
+        help="per-host worker micro-batch size (default: 64)",
+    )
+    s.add_argument(
+        "--duration", type=float, default=600.0, metavar="S",
+        help="wall seconds to keep the fabric up (default: 600; ^C "
+        "exits early and signals the hosts down)",
+    )
+    s.add_argument(
+        "--device", default="cuda",
+        help="where every host rates and serves: cuda (default; refuses "
+        "to start without a card) or cpu",
+    )
+    s.set_defaults(fn=cmd_fabric)
 
     s = sub.add_parser(
         "migrate",

@@ -36,8 +36,6 @@ the card). Where it differs:
   * nothing in the port is jitted, so ``jax.retraces_total`` stays 0 and
     the flat-steady-retraces objective passes trivially; it is kept, so
     the artifact and its judge keep the JAX shape;
-  * ``serve_http`` (the serve front door) waits for ROADMAP A11c and
-    raises;
   * the ``migrate`` backfill runs the fused window (:data:`MIGRATE_KERNEL`)
     where JAX's runs its reference scan: on the card the port's reference
     path dispatches ~100 small kernels a superstep from the host, and the
@@ -119,8 +117,13 @@ class SoakConfig:
     activity_concentration: float = 1.2
     warmup: bool = True  # precompile worker + serve + publish ladders
     use_http: bool = True  # query workload over /v1/* vs in-process
-    # Route the HTTP query workload through the serve FRONT DOOR (the
-    # concurrent socket plane): not ported yet (ROADMAP A11c); True raises.
+    # Route the HTTP query workload through the serve FRONT DOOR
+    # (serve/frontdoor.py — the concurrent socket plane + native codec)
+    # instead of the worker's RoutedHTTPServer plane. Same engine, same
+    # response bytes (the codec is differential-pinned), so the
+    # deterministic block is BIT-IDENTICAL to both the RoutedHTTPServer
+    # run and the in-process run per (seed, config) — pinned by
+    # tests/test_torch_frontdoor.py. Implies use_http.
     serve_http: bool = False
     # > 1 serves through the sharded plane (ShardedViewPublisher +
     # ShardedQueryEngine, docs/serving.md "Sharded plane"). The
@@ -224,12 +227,6 @@ class SoakDriver:
 
         self.cfg = config or SoakConfig()
         cfg = self.cfg
-        if cfg.serve_http:
-            raise NotImplementedError(
-                "SoakConfig(serve_http=True) drives the serve front door, "
-                "which is not ported yet (ROADMAP A11c); query over the "
-                "worker's /v1/* plane (use_http=True) or in-process"
-            )
         self.device = resolve_device(device)
         # Causal tracing is a process-wide flag; remember the prior state
         # so close() restores it (a traced soak inside a test session
@@ -273,7 +270,13 @@ class SoakDriver:
         self.outcomes = OutcomeModel(
             self.players, self.rating_config, seed=cfg.seed
         )
-        if cfg.use_http:
+        self.frontdoor = None
+        if cfg.serve_http:
+            from analyzer_tpu_torch.serve.frontdoor import FrontDoor
+
+            self.frontdoor = FrontDoor(self.worker.query_engine)
+            self.client = HttpServeClient(self.frontdoor.url)
+        elif cfg.use_http:
             self.client = HttpServeClient(self.worker.serve_server.url)
         else:
             self.client = EngineServeClient(self.worker.query_engine)
@@ -859,6 +862,11 @@ class SoakDriver:
             },
             "capture": {"degraded": False},
         }
+        if self.frontdoor is not None:
+            # Codec route accounting for the socket plane (OUTSIDE the
+            # deterministic block — native vs fallback changes nothing
+            # the digests see, by the codec's byte-parity contract).
+            artifact["frontdoor"] = self.frontdoor.codec_stats()
         if trace_block is not None:
             artifact["trace"] = trace_block
             artifact["slo"]["dominant_stage"] = trace_block["dominant_stage"]
@@ -960,6 +968,8 @@ class SoakDriver:
     def close(self) -> None:
         if not self._closed:
             self._closed = True
+            if self.frontdoor is not None:
+                self.frontdoor.close()
             self.worker.close()
             if self._trace_prev is not None:
                 enable_tracing(self._trace_prev)

@@ -16,8 +16,7 @@ cutover; the pause is the lock plus the new version object, measured as
 Backfill code publishes only into staging lineages and reaches a live
 lineage only through :func:`cutover`.
 
-The port's copy of ``analyzer_tpu.migrate.lineage``. ``begin_fabric``
-(the fabric host's owned-shard staging lineage) waits for ROADMAP A15b.
+The port's copy of ``analyzer_tpu.migrate.lineage``.
 """
 
 from __future__ import annotations
@@ -26,9 +25,6 @@ import time
 
 from analyzer_tpu_torch.migrate.progress import get_migration_progress
 from analyzer_tpu_torch.obs import get_registry
-
-#: The ROADMAP item the fabric seam waits for.
-A15B = "ROADMAP A15b, the fabric"
 
 
 def _make_staging(live):
@@ -101,10 +97,22 @@ class LineageManager:
         return self.staging
 
     def begin_fabric(self, directory, host: int, clock=None):
-        """The fabric host's staging lineage scoped to its owned shards: not
-        ported yet (the fabric waits for ROADMAP A15b)."""
-        raise NotImplementedError(
-            f"LineageManager.begin_fabric is not ported yet ({A15B})"
+        """The sharded-backfill seam for one fabric host: mints the staging
+        lineage exactly like :meth:`begin`, then returns it WRAPPED in a
+        :class:`~analyzer_tpu_torch.fabric.publish.FabricShardPublisher` —
+        the host's re-rate publishes a staging lineage scoped to its OWNED
+        shards (non-owned patches emptied), every staging version recorded
+        in ``directory`` so the fleet can watch per-owner backfill progress
+        before any cutover.
+
+        ``self.staging`` stays the RAW publisher: :meth:`cutover` and
+        :meth:`abort` operate on the lineage itself, not the ownership
+        filter (``cutover_from`` consumes publisher internals the wrapper
+        deliberately does not proxy)."""
+        from analyzer_tpu_torch.fabric.publish import FabricShardPublisher
+
+        return FabricShardPublisher(
+            directory, host, self.begin(), clock=clock
         )
 
     def versions(self) -> dict:

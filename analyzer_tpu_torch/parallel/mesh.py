@@ -78,9 +78,6 @@ from analyzer_tpu_torch.sched.residency import window_reuse_stats
 
 logger = get_logger(__name__)
 
-#: The ROADMAP item the fabric publisher (``fabric_directory=``) waits for.
-A15B = "ROADMAP A15b, the fabric"
-
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
@@ -565,17 +562,29 @@ class ShardedRun:
 
     # -- sharded serve-plane publish --------------------------------------
     def _shard_blocks(self) -> list[np.ndarray]:
-        """Each local shard's ``[rps, W]`` block on the host. Block ``d``'s
-        local row ``j`` is global row ``j*D + d``: the shard-major layout IS
-        the serve plane's interleaved local order, so the blocks feed
-        ``ShardedViewPublisher`` verbatim."""
-        host = self._block.cpu().numpy()
+        """Every shard's ``[rps, W]`` block on the host. Block ``d``'s local
+        row ``j`` is global row ``j*D + d``: the shard-major layout IS the
+        serve plane's interleaved local order, so the blocks feed
+        ``ShardedViewPublisher`` verbatim. On a multi-process mesh (the
+        fabric's publisher, which publishes the shards this process OWNS,
+        not the ones it holds) the blocks are gathered from every process:
+        a collective."""
+        block = self._block
+        if self.mesh.world_size > 1:
+            block = torch.cat(self.mesh.all_gather(block))
+        host = block.cpu().numpy()
         return [host[j * self.rps: (j + 1) * self.rps]
-                for j in range(self._n_local)]
+                for j in range(self.n_dev)]
 
     def maybe_publish_views(self, publisher) -> bool:
-        """Throttled :meth:`publish_views` (the chunk-boundary hook)."""
-        if not publisher.due():
+        """Throttled :meth:`publish_views` (the chunk-boundary hook). On a
+        multi-process mesh the processes agree on the throttle first (any
+        process due publishes on all), since the publish gathers."""
+        due = publisher.due()
+        if self.mesh.world_size > 1:
+            flag = torch.tensor([1.0 if due else 0.0])
+            due = bool(self.mesh.all_reduce_(flag).item() > 0)
+        if not due:
             return False
         self.publish_views(publisher)
         return True
@@ -586,8 +595,9 @@ class ShardedRun:
         ``dst`` lists) ride the per-shard patch path into the serving
         tables. ``publisher`` is a
         :class:`~analyzer_tpu_torch.serve.view.ShardedViewPublisher` with
-        ``n_shards == mesh size`` on a single-process mesh (validated by
-        the runner wiring)."""
+        ``n_shards == mesh size`` (validated by the runner wiring), wrapped
+        in a :class:`~analyzer_tpu_torch.fabric.publish.FabricShardPublisher`
+        on a multi-process mesh."""
         blocks = self._shard_blocks()
         n_players = self.n_rows - 1
         patches = []
@@ -648,17 +658,19 @@ def rate_history_sharded(
     ``n_shards`` equals the mesh size gets throttled per-shard patch
     publishes at chunk boundaries plus an unthrottled final publish; a
     plain ``ViewPublisher`` gets only the final assembled table. On a
-    multi-process mesh a raw sharded publisher would tear the view (each
-    process holds only its own shards) and is refused; the JAX package's
-    ``fabric_directory=`` (a ``FabricShardPublisher`` per process) waits
-    for ROADMAP A15b and raises NotImplementedError.
+    multi-process mesh each process holds only its own shards, so a raw
+    sharded publisher would tear the view and is refused. Pass
+    ``fabric_directory`` (a :class:`~analyzer_tpu_torch.fabric.directory.
+    FabricDirectory` whose topology matches the publisher's shard count)
+    and the runner wraps the publisher in a
+    :class:`~analyzer_tpu_torch.fabric.publish.FabricShardPublisher` for
+    host :func:`~analyzer_tpu_torch.parallel.multihost.process_index` (the
+    ``torch.distributed`` rank, 0 without a process group): each process
+    publishes ONLY the shards it owns (``shard % n_hosts == rank``) under
+    its own monotone version, recorded in the directory. Ownership is not
+    what a process holds (``D / world_size`` consecutive shards), so on a
+    multi-process mesh each publish gathers every shard's block.
     """
-    if fabric_directory is not None:
-        raise NotImplementedError(
-            f"fabric_directory= is not ported yet ({A15B}: the fabric's "
-            "FabricShardPublisher); publish through a ShardedViewPublisher "
-            "on a single-process mesh"
-        )
     mesh = mesh or make_mesh(device=state.table.device)
     n_dev = mesh.n_shards
     if sched.batch_size % n_dev:
@@ -698,7 +710,16 @@ def rate_history_sharded(
         view_publisher, "publish_shard_patches"
     )
     if sharded_publisher:
-        if mesh.world_size != 1:
+        if fabric_directory is not None:
+            from analyzer_tpu_torch.fabric.publish import FabricShardPublisher
+
+            # Each process publishes only its owned shards' patches under
+            # its own monotone version; the directory carries the fleet's
+            # (host, shards, version) vector for routed reads.
+            view_publisher = FabricShardPublisher(
+                fabric_directory, process_index(), view_publisher
+            )
+        elif mesh.world_size != 1:
             raise ValueError(
                 "per-shard view publishing on a multi-process mesh "
                 "needs a fabric directory (each process only sees its "

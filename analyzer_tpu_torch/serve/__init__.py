@@ -27,7 +27,12 @@ Three layers:
 ``serve/oracle.py`` is the pure-Python reference every served number is
 held to bit for bit; it is never imported by the serving path.
 
-Not ported yet: the front door (ROADMAP A11c).
+:mod:`~analyzer_tpu_torch.serve.frontdoor` is the production edge for the
+hot ``/v1/*`` path: keep-alive, pipelined connections on a small
+``selectors`` reader pool, responses rendered by the native codec
+(:mod:`~analyzer_tpu_torch.serve.fastjson`, ``csrc/fastjson.cc``, built
+with g++ at first use) byte for byte as ``ServeServer`` renders them, and
+``FollowerGroup`` read replicas.
 """
 
 from analyzer_tpu_torch.serve.engine import (

@@ -161,6 +161,13 @@ class Worker:
         ``audit_sample_denom`` served responses (seeded by
         ``audit_seed``) when the SLO plane and the serve plane are on."""
         self.device = resolve_device(device)
+        # Fabric membership (analyzer_tpu_torch/fabric): set by the fabric
+        # host wiring to a zero-arg callable returning the
+        # ``stats()['fabric']`` block — host index, owned shards, the fleet
+        # version vector — so /statusz shows the topology without the
+        # worker importing the fabric package. None on every non-fabric
+        # worker; scrapers key on presence.
+        self.fabric_info = None
         self.broker = broker
         self.store = store
         self.config = config or ServiceConfig.from_env()
@@ -1309,7 +1316,8 @@ class Worker:
         dropped key here silently breaks a metrics scraper. The
         ``migration`` block is None until a backfill has run in this
         process (:meth:`_migration_block`); the ``fabric`` block is None
-        until the fabric is ported (ROADMAP A15b); ``slo`` is the SLO plane's digest
+        off-fabric (a fabric host sets :attr:`fabric_info`); ``slo`` is the
+        SLO plane's digest
         (None with ``slo_plane=False``) and ``quality`` the calibration
         ledger's (None with ``quality=False``)."""
         # The engine is built lazily at the first flush, but the lag is
@@ -1373,9 +1381,11 @@ class Worker:
             "quality": (
                 self.quality.stats() if self.quality is not None else None
             ),
-            # Fabric membership: None until ROADMAP A15b ports the fabric
-            # (the JAX worker reports None off-fabric).
-            "fabric": None,
+            # Fabric membership (None off-fabric): the fabric host's block
+            # — host index, owned shards, the fleet's version vector.
+            "fabric": (
+                self.fabric_info() if self.fabric_info is not None else None
+            ),
         }
 
     def _migration_block(self) -> dict | None:

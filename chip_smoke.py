@@ -13,8 +13,8 @@ lines:
 
   1. device: the card's name and power limit;
   2. build: the two CUDA kernels (nvcc) and the host packer, sqlite and CSV
-     scanners (g++), built from the checkout's sources in parallel; each
-     must load;
+     scanners and the front door's response codec (g++), built from the
+     checkout's sources in parallel; each must load;
   3. scatter: the scatter-floor experiment
      (``python -m analyzer_tpu_torch.experiments.scatter_floor``) at
      P=1.5M, R=5120, W=16 and 128, with the row-scatter kernel's launches
@@ -67,7 +67,12 @@ lines:
      ``cli serve --shards 4`` on it answers ``/v1/*`` with ``--shards 1``'s
      bytes; ``cli train --mesh 2`` gives ``cli train``'s weights within
      ``MESH_TRAIN_ATOL``; one ``BENCH_MESH=2`` bench line at 100,000
-     matches;
+     matches; and [fabric]'s mesh seam: ``rate_history_sharded(
+     fabric_directory=)`` on those 100,000 matches over a 2-host topology,
+     as host 0 and as host 1 (``fabric_seam``): table and owned rows of the
+     published view equal to the reference runner's bit for bit, non-owned
+     rows the first publish's, the directory's version the publisher's,
+     ``row_scatter`` launched once a superstep and timed;
   7. tier: the prefix through ``rate_history(kernel="fused",
      hot_rows=262144, view_publisher=pub)`` — a hot set of 17% of the
      players over a pinned host tier — with the kernel's launch count taken
@@ -86,6 +91,14 @@ lines:
      then 4 readers against a writer that republishes patches: versions
      only rise per reader and each response equals the oracle at its own
      version;
+  8a. frontdoor: on that plane, ``FrontDoor(engine, readers=4)`` against the
+     stdlib ``ServeServer`` on the same engine: 1,000 distinct requests of
+     the four hot kinds asked of the stdlib plane, then 20,000 drawn from
+     them over 32 keep-alive connections pipelining 8 deep; every body
+     byte-equal to the stdlib plane's, the native codec with 0 fallbacks,
+     requests/s and p50 / p99 of both planes printed; a ``FollowerGroup``
+     of 2 replicas serves the leader's bytes at the leader's version before
+     and after one patch publish (the adoption time printed);
   9. cli: the prefix saved as npz, then ``cli rate --kernel fused --trace
      DIR --metrics-out m.json --trace-events t.jsonl`` (the streamed path)
      must report the prefix's ``players_rated`` and ``mean_mu``; in
@@ -107,8 +120,9 @@ lines:
  11. rater: one 3v3 of fresh tier-15 players through ``rater.rate_match``
      on the card: winner shared mu 2052.41, equal to ``rate_and_apply`` on
      the same match;
- 12. db: the reference's DB round trip at its documented size — 1M
-     matches / 333,333 players written by ``io.dbgen`` (no
+ 12. db: the reference's DB round trip at half its documented size (1M
+     matches / 333,333 players, cut for [fabric] and [frontdoor]'s time) —
+     500,000 matches / 166,666 players written by ``io.dbgen`` (no
      participant_items rows, as the JAX package's ingest fixture), then
      ``cli rate --db --db-write --kernel fused`` in a subprocess (its
      load / rate / db_write seconds, its ``fused_window`` launches, and
@@ -117,11 +131,12 @@ lines:
      files equal bit for bit; then ``cli serve --db`` on the written file,
      whose ``cli query ratings`` and ``leaderboard --k 10`` bodies must
      equal the database rows exactly;
- 13. worker: the service_bench fixture (50,000 matches / 16,666 players
-     with participant_items rows) in four copies: ``Worker(InMemoryBroker(),
+ 13. worker: the service_bench fixture at half its depth (25,000 matches /
+     8,333 players with participant_items rows; 50,000 / 16,666 until
+     [fabric] and [frontdoor] needed the time) in four copies: ``Worker(InMemoryBroker(),
      SqlStore(copy), ServiceConfig(batch_size=500, idle_timeout=0))``
      sequential, and pipelined with the lag ``warmup()`` chose and a serve
-     plane (``serve_port=0``): both rate all 50,000 with no dead letter, the
+     plane (``serve_port=0``): both rate all 25,000 with no dead letter, the
      two files' player / participant / participant_items / match rows are
      equal bit for bit, ``/v1/ratings`` over HTTP equals the committed
      rows, and ``cli rate --db --db-write --kernel fused`` on the third
@@ -157,9 +172,9 @@ lines:
      ``/readyz`` turns 503, and the flight dump the burn wrote holds
      ``history.json``, which ``cli history`` renders;
  13b. models: BASELINE configs 1, 3 and 4 through the port's cli on the
-     card. ``synth --matches 200000 --players 40000 --seed 7`` with
+     card. ``synth --matches 100000 --players 20000 --seed 7`` with
      ``--telemetry``, and with ``--synergy 2.0`` (BASELINE.md's
-     model-quality provenance streams), then ``train`` with ``--model
+     model-quality provenance streams at half their depth), then ``train`` with ``--model
      logistic``, ``--model mlp --hidden 64`` and ``--model mlp
      --telemetry`` on the first and logistic and mlp on the second: each
      JSON line with its features / train seconds; losses finite, the
@@ -212,15 +227,24 @@ lines:
      CUDA kernel with collect, against the port's 50-digit mpmath oracle
      (``ops.oracle``): shared and per-mode mu / sigma and the quality
      within tests/test_oracle.py's relative bounds (1e-5, 1e-4, 1e-5);
- 16a. soak: two closed-loop soaks (``loadgen``) on the card at the rig
+ 16a. soak: three closed-loop soaks (``loadgen``) on the card at the rig
      widths (1,000,000 players, 2,000 matches and 500 queries a virtual
      second, batches of 500, queries over ``/v1/*``), 1 virtual second,
      not realtime: A on one queue and one serve shard, B on four broker
      partitions with priority lanes, four serve shards and a
-     100,000-match migration under the load. B's deterministic block
-     equals A's byte for byte, its migrated lineage its from-scratch
-     reference, both pass ``soak_violations``; matches/s, the query
-     workload's p50 / p99 per kind and the migration block are printed;
+     50,000-match migration under the load, C as A with its queries
+     through the serve front door. B's and C's deterministic blocks equal
+     A's byte for byte, B's migrated lineage its from-scratch reference,
+     all pass ``soak_violations``; matches/s, the query workload's p50 /
+     p99 per kind, the migration block and C's codec stats are printed;
+ 16b. fabric: ``cli soak --hosts 1 --fabric-shards 4`` and ``--hosts 2`` in
+     subprocesses (each host a ``python -m analyzer_tpu_torch.fabric.
+     process`` child on the card) at the rig soak's rate and batch over
+     200,000 players, one virtual second: deterministic blocks equal byte
+     for byte, ``fleet.n_hosts`` 2; matches/s per host, the routed lookups'
+     p99, the view staleness and every host's bring-up and seed seconds
+     printed; then ``cli fabric --hosts 2 --shards 4``: each host's
+     ``/statusz`` ``fabric`` block, and exit 0 on an interrupt;
  17. timing: the fused window per window at the main path's shapes
      (``python -m analyzer_tpu_torch.experiments.window_timing``'s
      measurement: windows cut to 1..16 looped steps for the per-step
@@ -231,7 +255,9 @@ lines:
      (the fused window's on the tiered path, the DB lane, the worker
      phase's ``cli rate --db``, [bench]'s run and [migrate]'s runs — with
      the migration's ms a window by CUDA events — beside them; the row
-     scatter's on [mesh]'s sharded re-rate, at its shapes, with the
+     scatter's on [mesh]'s sharded re-rate, at its shapes, with its
+     launches on [fabric]'s mesh seam and their ms a call by CUDA events
+     (``launches_fabric_seam``, ``fabric_seam_call_ms``) and the
      scatter-floor experiment's numbers as ``floor_*``), the error
      against its plain version, its time at its path's shapes beside the
      plain version's, the library call's and the card's bound, and the
@@ -275,15 +301,17 @@ PREFIX_STEPS = 128
 # the same prefix: the same checks at a tenth of the depth, which makes
 # room for [db] and [worker].
 CLI_PREFIX_MATCHES = 1_000_000
-# [db]: the DB round trip at the reference's documented size (1M matches,
-# 333,333 players, max_activity_share=1e-4, seed 42), the file built
+# [db]: the DB round trip at half the reference's documented size (1M
+# matches, 333,333 players; a depth cut for [fabric] and [frontdoor]'s
+# time, PERF.md section 4), max_activity_share=1e-4, seed 42, the file built
 # without participant_items rows, as the JAX package's ingest fixture is
 # (the columnar lane never reads them).
-DB_MATCHES = 1_000_000
-DB_PLAYERS = 333_333
+DB_MATCHES = 500_000
+DB_PLAYERS = 166_666
 # [worker]: the service_bench fixture (n_players = matches // 3, with
-# participant_items rows) in batches of 500 ids.
-WORKER_MATCHES = 50_000
+# participant_items rows) in batches of 500 ids, at half service_bench's
+# 50,000 matches (a depth cut for [fabric] and [frontdoor]'s time).
+WORKER_MATCHES = 25_000
 WORKER_BATCH = 500
 # The consumer-loop splits must account for the loop's wall to this share.
 SPLIT_TOL = 0.05
@@ -351,8 +379,8 @@ ORACLE_BOUNDS = {"mu": 1e-5, "sigma": 1e-4, "quality": 1e-5}
 # 40,000 players, seed 7; with telemetry, and with --synergy 2.0), the
 # card-vs-CPU stream, and the first matches of that stream for the
 # features pass's graph-vs-eager check.
-PROV_MATCHES = 200_000
-PROV_PLAYERS = 40_000
+PROV_MATCHES = 100_000  # BASELINE.md's 200,000 / 40,000 at half depth, for
+PROV_PLAYERS = 20_000   # [fabric] and [frontdoor]'s time (PERF.md section 4)
 CMP_MATCHES = 20_000
 CMP_PLAYERS = 4_000
 FEATURES_EAGER_MATCHES = 1_000
@@ -409,10 +437,32 @@ MIGRATE_ASSIGN_MATCHES = 200_000
 # soak"), queries over /v1/*, cut to SOAK_SECONDS virtual seconds and not
 # realtime (a depth cut: a virtual second of run A at these widths took
 # ~25-28 s of wall on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md); run B
-# migrates SOAK_MIGRATE_MATCHES matches under the load.
+# migrates SOAK_MIGRATE_MATCHES matches under the load (100,000 until
+# [fabric] and [frontdoor] needed the time).
 SOAK_WIDTHS = dict(n_players=1_000_000, qps=2000.0, query_qps=500.0, batch_size=500)
 SOAK_SECONDS = 1.0
-SOAK_MIGRATE_MATCHES = 100_000
+SOAK_MIGRATE_MATCHES = 50_000
+# [fabric]: the mesh seam rate_history_sharded(fabric_directory=) on [mesh]'s
+# first MESH_SMALL_MATCHES matches, MESH_SHARDS shards over a 2-host
+# topology, publishing after every FABRIC_SEAM_CHUNK steps; the fabric soak
+# at the rig soak's rate and batch (docs/OPERATIONS.md) over FABRIC_PLAYERS
+# players (cut from 1M: the driver seeds each host over JSON, 16 floats a
+# row) and FABRIC_SHARDS shards, at 1 and 2 hosts, one virtual second.
+FABRIC_SEAM_HOSTS = 2
+FABRIC_SEAM_CHUNK = 64
+FABRIC_PLAYERS = 200_000
+FABRIC_SHARDS = 4
+# [frontdoor]: experiments/serve_bench.py's front-door defaults — 20,000
+# queries over 32 keep-alive connections pipelining 8 deep, 4 readers —
+# against 1,000 urlopen requests on the stdlib plane from 8 threads; the
+# queries are drawn from FRONTDOOR_DISTINCT distinct requests, each asked of
+# the stdlib plane once; 2 follower replicas.
+FRONTDOOR_QUERIES = 20_000
+FRONTDOOR_CONNECTIONS = 32
+FRONTDOOR_DEPTH = 8
+FRONTDOOR_READERS = 4
+FRONTDOOR_DISTINCT = 1_000
+FRONTDOOR_FOLLOWERS = 2
 
 
 def log(msg: str) -> None:
@@ -1201,11 +1251,13 @@ def mesh_phase(dev, cfg, state0, stream, pre, pre_sched, a_pre, tmp) -> dict:
     if not np.array_equal(st.table.cpu().numpy(), a_ref, equal_nan=True) \
             or rs.launches != s_stats["n_steps"]:
         raise AssertionError("[mesh]: rate_stream(mesh=2) differs from the reference runner")
-    del st, a_ref
+    del st
     log(f"[mesh] first {small.n_matches} matches ({s_sched.n_steps} steps x "
         f"B={s_sched.batch_size}): D = {', '.join(map(str, MESH_WIDTHS))} and "
         f"rate_stream(mesh=2) bit-identical to rate_history(kernel='reference'), "
         f"one row_scatter launch a superstep; walls {'; '.join(walls)}")
+    seam = fabric_seam(cfg, state0, s_sched, a_ref)
+    del a_ref
 
     # -- the kernel at the D-shard run's shapes, against its plain version --
     run = ShardedRun(state0, cfg, mesh)
@@ -1342,7 +1394,100 @@ def mesh_phase(dev, cfg, state0, stream, pre, pre_sched, a_pre, tmp) -> dict:
             "device_ms": k_dev, "queued_ms": k_queued, "library_queued_ms": l_queued,
             "wrapper_host_ms": wrapper_host_ms, "launch_host_ms": launch_host_ms,
             "rows": r, "rows_kept": n_kept,
-            "ms_per_superstep": 1e3 * t_run / pre_sched.n_steps}
+            "ms_per_superstep": 1e3 * t_run / pre_sched.n_steps, **seam}
+
+
+def fabric_seam(cfg, state0, s_sched, a_ref) -> dict:
+    """Phase [fabric], part 1: the mesh seam. ``rate_history_sharded(
+    fabric_directory=)`` over ``MESH_SHARDS`` logical shards on the first
+    ``MESH_SMALL_MATCHES`` matches, with a ``ShardedViewPublisher`` and a
+    ``FABRIC_SEAM_HOSTS``-host topology, publishing after every
+    ``FABRIC_SEAM_CHUNK`` steps; run as host 0 and as host 1 (the seam's
+    host index is ``parallel.multihost.process_index()``, 0 in this one
+    process: for host 1 it is patched, as JAX's test of the seam patches
+    ``jax.process_count``). In each run the table equals ``a_ref`` (the
+    reference runner's) bit for bit, the owned rows of the published view
+    (``shard % 2 == host``) equal it too, the non-owned rows hold the table
+    of the first publish (after the first chunk: the rebuild every first
+    publish makes; tests/test_torch_fabric.py pins the same), and the
+    directory records the publisher's version for that host only. Every
+    ``row_scatter`` launch on the path is counted and timed by CUDA events
+    around each call. Returns the kernels line's fabric keys."""
+    import analyzer_tpu_torch.parallel.mesh as mesh_mod
+    from analyzer_tpu_torch.fabric import FabricDirectory, FabricTopology
+    from analyzer_tpu_torch.kernels import row_scatter as rs
+    from analyzer_tpu_torch.parallel import make_mesh, rate_history_sharded
+    from analyzer_tpu_torch.sched import rate_history
+    from analyzer_tpu_torch.serve import ShardedViewPublisher
+
+    t_phase = time.perf_counter()
+    first, _ = rate_history(state0, s_sched, cfg, kernel="reference",
+                            stop_after=FABRIC_SEAM_CHUNK, steps_per_chunk=FABRIC_SEAM_CHUNK)
+    a_first = first.table.cpu().numpy()
+    del first
+    n = state0.n_players
+    shard_of = np.arange(n) % MESH_SHARDS
+    real_scatter, real_index = mesh_mod.row_scatter, mesh_mod.process_index
+    events: list = []
+
+    def timed(*args, **kw):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = real_scatter(*args, **kw)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    total = 0
+    for host in range(FABRIC_SEAM_HOSTS):
+        directory = FabricDirectory(FabricTopology(MESH_SHARDS, FABRIC_SEAM_HOSTS))
+        pub = ShardedViewPublisher(MESH_SHARDS, min_publish_interval_s=0.0)
+        mesh = make_mesh(MESH_SHARDS)
+        rs.launches = 0
+        mesh_mod.row_scatter = timed
+        mesh_mod.process_index = lambda h=host: h
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            final = rate_history_sharded(
+                state0, s_sched, cfg, mesh=mesh, steps_per_chunk=FABRIC_SEAM_CHUNK,
+                view_publisher=pub, fabric_directory=directory)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            mesh_mod.row_scatter, mesh_mod.process_index = real_scatter, real_index
+        launches = rs.launches
+        total += launches
+        table_same = np.array_equal(final.table.cpu().numpy(), a_ref, equal_nan=True)
+        del final
+        view = pub.current()
+        got = view.host_table()
+        owned = (shard_of % FABRIC_SEAM_HOSTS) == host
+        owned_same = np.array_equal(got[owned], a_ref[:n][owned], equal_nan=True)
+        foreign_first = np.array_equal(got[~owned], a_first[:n][~owned], equal_nan=True)
+        foreign_final = np.array_equal(got[~owned], a_ref[:n][~owned], equal_nan=True)
+        vector = directory.vector()
+        log(f"[fabric] mesh seam as host {host} of {FABRIC_SEAM_HOSTS} "
+            f"(owned shards {sorted(set(shard_of[owned].tolist()))} of "
+            f"{MESH_SHARDS}): rate_history_sharded(fabric_directory=) on the first "
+            f"{MESH_SMALL_MATCHES} matches, {s_sched.n_steps} steps in chunks of "
+            f"{FABRIC_SEAM_CHUNK}: wall {wall:.3f} s, row_scatter launches {launches}; "
+            f"table bit-identical to the reference runner: {table_same}; view "
+            f"v{view.version}: owned rows ({int(owned.sum())}) equal it: {owned_same}; "
+            f"non-owned rows ({int((~owned).sum())}) equal the first publish's table "
+            f"(after {FABRIC_SEAM_CHUNK} steps): {foreign_first}, the final table: "
+            f"{foreign_final}; directory vector {vector}")
+        if launches != s_sched.n_steps or not table_same or not owned_same \
+                or not foreign_first or foreign_final \
+                or vector != {host: pub.version}:
+            raise AssertionError(f"[fabric]: the mesh seam as host {host} failed")
+        del view, got, pub
+    ms = float(np.mean([a.elapsed_time(b) for a, b in events]))
+    log(f"[fabric] row_scatter on the seam: {total} launches over both runs, "
+        f"{ms:.5f} ms a call (CUDA events around each wrapper call: a reading holds "
+        f"the wrapper's host time and the work queued ahead, not the kernel alone); seam "
+        f"wall {time.perf_counter() - t_phase:.1f} s")
+    return {"launches_fabric_seam": total, "fabric_seam_call_ms": ms}
 
 
 def http_phase(cli, dev, cfg, ck_path: str) -> None:
@@ -1492,8 +1637,8 @@ def player_rows(path: str) -> list:
 
 
 def db_phase(cli, tmp: str, dev, n_matches: int = DB_MATCHES) -> dict:
-    """Phase [db]: the reference's DB round trip at its documented size —
-    ``io.dbgen`` writes the history, ``cli rate --db --db-write`` re-rates
+    """Phase [db]: the reference's DB round trip at half its documented size
+    (``DB_MATCHES``) — ``io.dbgen`` writes the history, ``cli rate --db --db-write`` re-rates
     it on the card through the fused kernel (a subprocess, its launches and
     native scans counted there) and, on a copy, through the reference
     kernel: the player rows must be equal bit for bit; then ``cli serve
@@ -2652,15 +2797,16 @@ def migrate_phase(cli, tmp: str, dev, cfg, state0, csv_path: str, pre,
 
 
 def soak_phase(dev) -> None:
-    """Phase [soak]: two closed-loop soaks on the card at the rig widths
+    """Phase [soak]: three closed-loop soaks on the card at the rig widths
     (``SOAK_WIDTHS``), queries over ``/v1/*``, ``SOAK_SECONDS`` virtual
     seconds, not realtime: A on one queue and one serve shard, B on
     ``broker_partitions=4`` with priority lanes, ``serve_shards=4`` and a
-    ``SOAK_MIGRATE_MATCHES``-match migration under the load. B's
-    deterministic block must equal A's byte for byte, its migrated lineage
-    its from-scratch reference, and both artifacts must pass
-    ``soak_violations``. Prints matches/s, the query workload's p50 / p99
-    per kind and the migration block."""
+    ``SOAK_MIGRATE_MATCHES``-match migration under the load, C as A with
+    the queries through the serve front door (``serve_http=True``). B's and
+    C's deterministic blocks must equal A's byte for byte, B's migrated
+    lineage its from-scratch reference, C's responses all native-encoded,
+    and every artifact must pass ``soak_violations``. Prints matches/s, the
+    query workload's p50 / p99 per kind and the migration block."""
     from analyzer_tpu_torch.loadgen import SoakConfig, SoakDriver
     from analyzer_tpu_torch.obs.slo import soak_violations
 
@@ -2670,7 +2816,8 @@ def soak_phase(dev) -> None:
     arts = {}
     for tag, extra in (("A", {}), ("B", dict(
             broker_partitions=4, priority_lanes=True, serve_shards=4,
-            migrate=True, migrate_matches=SOAK_MIGRATE_MATCHES))):
+            migrate=True, migrate_matches=SOAK_MIGRATE_MATCHES)),
+            ("C", dict(serve_http=True))):
         driver = SoakDriver(SoakConfig(**base, **extra))
         lat: dict = {}
         in_queries = [False]
@@ -2717,6 +2864,10 @@ def soak_phase(dev) -> None:
             f"slo {art['slo']}")
         if "migration" in art:
             log(f"[soak] {tag} migration: {json.dumps(art['migration'])}")
+        if "frontdoor" in art:
+            log(f"[soak] {tag} front door codec: {art['frontdoor']}")
+            if not (art["frontdoor"]["native"] and art["frontdoor"]["encodes"] > 0):
+                raise AssertionError(f"[soak] {tag}: codec {art['frontdoor']}")
         violations = soak_violations(art)
         if violations or not art["slo"]["pass"]:
             raise AssertionError(f"[soak] {tag}: {violations or art['slo']['violations']}")
@@ -2732,6 +2883,338 @@ def soak_phase(dev) -> None:
     if not (same and mig.get("finished") and mig.get("bit_identical")
             and mig.get("cutover_serves_migrated_table")):
         raise AssertionError("[soak]: B's block differs from A's, or its migration failed")
+    same_c = json.dumps(arts["A"]["deterministic"], sort_keys=True) == json.dumps(
+        arts["C"]["deterministic"], sort_keys=True)
+    log(f"[soak] C's deterministic block (queries through the front door) equal to "
+        f"A's byte for byte: {same_c}")
+    if not same_c:
+        raise AssertionError("[soak]: C's block (serve_http) differs from A's")
+
+
+def fabric_phase(tmp: str) -> None:
+    """Phase [fabric], parts 2 and 3. The fabric soak: ``cli soak --hosts 1
+    --fabric-shards 4`` and ``--hosts 2`` in subprocesses at the rig soak's
+    rate and batch over ``FABRIC_PLAYERS`` players, one virtual second, the
+    same seed, ``--out``: the two deterministic blocks must be equal byte
+    for byte and the second's ``fleet.n_hosts`` 2; prints matches/s per
+    host, the routed lookups' p99, the view staleness and each host's
+    bring-up (CUDA context, build, seed, warm-up) seconds. ``cli fabric
+    --hosts 2 --shards 4`` runs in a subprocess started beside the first
+    soak (its children reach the card while that soak runs): each host's
+    ready line, its ``/statusz`` ``fabric`` block (host, owned shards,
+    version vector), then an interrupt that brings the fabric down with
+    exit 0, before the second soak."""
+    t_phase = time.perf_counter()
+    fab = _cli_popen("fabric", "--hosts", "2", "--shards", str(FABRIC_SHARDS),
+                     "--duration", "600")
+    ready: list = []
+
+    def read_ready(t0=time.perf_counter()):
+        while len(ready) < 2:
+            line = fab.stdout.readline()
+            if not line:
+                return
+            if line.startswith("{"):
+                ready.append((json.loads(line), time.perf_counter() - t0))
+
+    reader = threading.Thread(target=read_ready, daemon=True)
+    reader.start()
+    arts = {}
+    try:
+        for hosts in (1, 2):
+            arts[hosts] = _fabric_soak(tmp, hosts)
+            if hosts == 1:
+                reader.join(timeout=120)
+                _cli_fabric_check(fab, ready)
+    finally:
+        if fab.poll() is None:
+            fab.kill()
+            fab.communicate()
+    same = json.dumps(arts[1]["deterministic"], sort_keys=True) == json.dumps(
+        arts[2]["deterministic"], sort_keys=True)
+    log(f"[fabric] the deterministic blocks at hosts 1 and 2 equal byte for byte: "
+        f"{same}; fleet.n_hosts {arts[2]['fleet']['n_hosts']}; table digest "
+        f"{arts[2]['deterministic']['table_digest'][:16]}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if not same or arts[2]["fleet"]["n_hosts"] != 2:
+        raise AssertionError("[fabric]: the soak's block depends on the host count")
+
+
+def _fabric_soak(tmp: str, hosts: int) -> dict:
+    """One ``cli soak --hosts`` run of [fabric], checked and printed;
+    returns its artifact."""
+    out = os.path.join(tmp, f"FABRIC_{hosts}.json")
+    t0 = time.perf_counter()
+    proc = _cli_popen(
+        "soak", "--hosts", str(hosts), "--fabric-shards", str(FABRIC_SHARDS),
+        "--players", str(FABRIC_PLAYERS), "--qps", str(SOAK_WIDTHS["qps"]),
+        "--query-qps", str(SOAK_WIDTHS["query_qps"]),
+        "--batch-size", str(SOAK_WIDTHS["batch_size"]),
+        "--duration", str(SOAK_SECONDS), "--seed", str(SEED), "--out", out)
+    _finish(proc, f"[fabric] cli soak --hosts {hosts}", timeout=900)
+    wall = time.perf_counter() - t0
+    with open(out) as f:
+        art = json.load(f)
+    det, meas = art["deterministic"], art["measured"]
+    per_host = ", ".join(
+        f"host {h['host']} {h['matches_rated']} rated / {meas['wall_s']} s = "
+        f"{h['matches_rated'] / meas['wall_s']:,.2f} matches/s"
+        for h in art["fleet"]["hosts"])
+    bring = "; ".join(
+        f"host {b['host']}: context {b['context_s']:.3f} s, build "
+        f"{b['build_s']:.3f} s, seed {b['seed_s']:.3f} s, warm-up {b['warm_s']:.3f} s"
+        for b in meas["bringup"])
+    log(f"[fabric] cli soak --hosts {hosts} --fabric-shards {FABRIC_SHARDS}, "
+        f"{FABRIC_PLAYERS} players, {SOAK_WIDTHS['qps']:.0f} matches and "
+        f"{SOAK_WIDTHS['query_qps']:.0f} queries a virtual second, batches of "
+        f"{SOAK_WIDTHS['batch_size']}, {det['ticks']} virtual s (run {wall:.1f} s): "
+        f"{det['matches_rated']} rated of {det['matches_published']}, "
+        f"{art['value']:,.2f} matches/s per host ({per_host}); queries "
+        f"{det['queries']}, {meas['queries_per_sec']:,.2f}/s, p50 / p99 "
+        f"{art['latency_ms']['p50']} / {art['latency_ms']['p99']} ms; "
+        f"fabric.remote_lookup_p99_ms {meas['remote_lookup_p99_ms']}; "
+        f"view_staleness_ticks_max {det['view_staleness_ticks_max']}; dead letters "
+        f"{det['dead_letters']}; route calls {art['fleet']['route_calls']}; "
+        f"slo {art['slo']['pass']}")
+    log(f"[fabric] bring-up, --hosts {hosts}: {bring}")
+    if not art["slo"]["pass"] or det["matches_rated"] != det["matches_published"]:
+        raise AssertionError(f"[fabric] --hosts {hosts}: {art['slo']}")
+    return art
+
+
+def _cli_fabric_check(proc, ready: list) -> None:
+    """[fabric]'s ``cli fabric`` check: both ready lines (with the seconds
+    from the command's start to each), each host's ``/statusz`` ``fabric``
+    block, then an interrupt and exit 0."""
+    import ast
+    import signal
+    import urllib.request
+
+    if len(ready) < 2:
+        raise AssertionError(f"[fabric]: cli fabric printed {len(ready)} ready lines, "
+                             f"exit {proc.poll()}")
+    blocks = []
+    for ln, _t in ready:
+        text = urllib.request.urlopen(
+            f"http://127.0.0.1:{ln['obs_port']}/statusz", timeout=30).read().decode()
+        block = next(x for x in text.splitlines() if x.strip().startswith("fabric = "))
+        fab = ast.literal_eval(block.split("=", 1)[1].strip())
+        want = {"host": ln["host"], "n_hosts": 2, "n_shards": FABRIC_SHARDS,
+                "shards": list(range(ln["host"], FABRIC_SHARDS, 2)),
+                "vector": {str(ln["host"]): 0}}
+        if fab != want or ln["shards"] != want["shards"]:
+            raise AssertionError(f"[fabric]: /statusz fabric block {fab}, want {want}")
+        blocks.append(fab)
+    proc.send_signal(signal.SIGINT)
+    _finish(proc, "[fabric] cli fabric", timeout=120)
+    log(f"[fabric] cli fabric --hosts 2 --shards {FABRIC_SHARDS} (beside the first "
+        f"soak): ready lines {max(t for _l, t in ready):.1f} s after its start; "
+        f"/statusz fabric blocks {blocks}; down on an interrupt, exit {proc.returncode}")
+
+
+def frontdoor_phase(cfg, pub) -> None:
+    """Phase [frontdoor], on [serve]'s plane (``pub``: the 1M prefix over the
+    whole player table), with no publish until its last step. A warmed
+    ``QueryEngine`` behind the stdlib ``ServeServer`` and behind
+    ``FrontDoor(engine, readers=FRONTDOOR_READERS)``: ``FRONTDOOR_DISTINCT``
+    seeded requests of the four hot kinds (ratings pages, 5v5 win
+    probabilities, leaderboards, tiers with and without a score) asked once
+    each of the stdlib plane by urlopen from 8 threads (requests/s, p50 /
+    p99), then ``FRONTDOOR_QUERIES`` drawn from them over
+    ``FRONTDOOR_CONNECTIONS`` keep-alive connections pipelining
+    ``FRONTDOOR_DEPTH`` deep (requests/s, p50 / p99 from each window's send):
+    every front-door body equal to the stdlib body of its request,
+    ``codec_stats()`` native with 0 fallbacks. Then a ``FollowerGroup`` of
+    ``FRONTDOOR_FOLLOWERS`` replicas: each replica's bodies equal the
+    leader's at the same version; one patch publish, the time until every
+    replica adopted it, and the bodies again."""
+    import urllib.request
+
+    from analyzer_tpu_torch.serve import QueryEngine
+    from analyzer_tpu_torch.serve.frontdoor import FollowerGroup, FrontDoor
+    from analyzer_tpu_torch.serve.server import ServeServer
+
+    t_phase = time.perf_counter()
+    view = pub.current()
+    n = view.n_players
+    rng = np.random.default_rng(SEED + 7)
+    targets = {"/v1/tiers": None, "/v1/leaderboard": None}
+    i = 0
+    while len(targets) < FRONTDOOR_DISTINCT:
+        kind, i = i % 10, i + 1
+        if kind < 4:
+            rows = rng.choice(n, size=10, replace=False)
+            t = (f"/v1/winprob?a={','.join(map(str, rows[:5]))}"
+                 f"&b={','.join(map(str, rows[5:]))}")
+        elif kind < 8:
+            t = "/v1/ratings?ids=" + ",".join(map(str, rng.integers(0, n, 8)))
+        elif kind == 8:
+            t = f"/v1/leaderboard?k={int(rng.integers(1, 1001))}"
+        else:
+            t = f"/v1/tiers?score={float(rng.uniform(-2500, 2500))!r}"
+        targets[t] = None
+    targets = list(targets)
+    engine = QueryEngine(pub, cfg=cfg)
+    engine.warmup(view)
+    engine.start()
+    srv = ServeServer(engine)
+    door = FrontDoor(engine, readers=FRONTDOOR_READERS)
+    group = None
+    try:
+        want: dict = {}
+        base_lat: list = [[] for _ in range(8)]
+
+        failed: list = []
+
+        def stdlib_client(w):
+            try:
+                for t in targets[w::8]:
+                    t0 = time.perf_counter()
+                    with urllib.request.urlopen(srv.url + t, timeout=60) as resp:
+                        want[t] = (resp.status, resp.read())
+                    base_lat[w].append(time.perf_counter() - t0)
+            except Exception as e:  # noqa: BLE001 — reported below
+                failed.append(f"{t}: {e!r}")
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=stdlib_client, args=(w,)) for w in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        t_base = time.perf_counter() - t0
+        if failed or len(want) != len(targets) or any(
+                s != 200 for s, _b in want.values()):
+            raise AssertionError(f"[frontdoor]: the stdlib plane failed a request: "
+                                 f"{failed[:3]}")
+        base_ms = np.array([x for part in base_lat for x in part]) * 1e3
+
+        order = rng.integers(0, len(targets), FRONTDOOR_QUERIES)
+        per_conn = [order[c::FRONTDOOR_CONNECTIONS] for c in range(FRONTDOOR_CONNECTIONS)]
+        lats: list = [[] for _ in range(FRONTDOOR_CONNECTIONS)]
+        bad: list = []
+
+        def door_client(c):
+            import socket
+
+            sock = socket.create_connection(("127.0.0.1", door.port), timeout=60)
+            sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            buf = bytearray()
+            try:
+                mine = per_conn[c]
+                for i in range(0, len(mine), FRONTDOOR_DEPTH):
+                    window = [targets[j] for j in mine[i:i + FRONTDOOR_DEPTH]]
+                    t_send = time.perf_counter()
+                    sock.sendall(b"".join(
+                        f"GET {t} HTTP/1.1\r\nHost: smoke\r\n\r\n".encode()
+                        for t in window))
+                    for t in window:
+                        status, body = _read_http(sock, buf)
+                        lats[c].append(time.perf_counter() - t_send)
+                        if (status, body) != want[t]:
+                            bad.append(t)
+            except Exception as e:  # noqa: BLE001 — reported below
+                bad.append(repr(e))
+            finally:
+                sock.close()
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=door_client, args=(c,))
+                   for c in range(FRONTDOOR_CONNECTIONS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        t_door = time.perf_counter() - t0
+        stats = door.codec_stats()
+        door_ms = np.array([x for part in lats for x in part]) * 1e3
+        if bad or door_ms.size != FRONTDOOR_QUERIES:
+            raise AssertionError(f"[frontdoor]: {len(bad)} bodies differ from the "
+                                 f"stdlib plane's, e.g. {bad[:3]}")
+        if not (stats["native"] and stats["fallbacks"] == 0):
+            raise AssertionError(f"[frontdoor]: codec {stats}")
+        log(f"[frontdoor] stdlib ServeServer, {len(targets)} distinct requests by "
+            f"urlopen from 8 threads: {len(targets) / t_base:,.1f} requests/s, p50 / "
+            f"p99 {np.percentile(base_ms, 50):.3f} / {np.percentile(base_ms, 99):.3f} ms")
+        log(f"[frontdoor] FrontDoor(readers={FRONTDOOR_READERS}), {FRONTDOOR_QUERIES} "
+            f"requests over {FRONTDOOR_CONNECTIONS} keep-alive connections pipelining "
+            f"{FRONTDOOR_DEPTH} deep (view v{view.version}, {n} players): "
+            f"{FRONTDOOR_QUERIES / t_door:,.1f} requests/s "
+            f"({FRONTDOOR_QUERIES / t_door / (len(targets) / t_base):.2f}x the stdlib "
+            f"plane), p50 / p99 {np.percentile(door_ms, 50):.3f} / "
+            f"{np.percentile(door_ms, 99):.3f} ms from each window's send; every body "
+            f"equal to the stdlib plane's for its request: True; codec {stats}")
+
+        group = FollowerGroup(pub, cfg=cfg, n_followers=FRONTDOOR_FOLLOWERS).start()
+        group.refresh()
+        sample = targets[:: len(targets) // 50]
+
+        def replicas_equal(version) -> bool:
+            for t in sample:
+                lead = urllib.request.urlopen(door.url + t, timeout=60).read()
+                if json.loads(lead)["version"] != version:
+                    return False
+                for url in group.urls:
+                    if urllib.request.urlopen(url + t, timeout=60).read() != lead:
+                        return False
+            return True
+
+        v0, vs0 = pub.version, group.versions
+        eq0 = vs0 == [v0] * FRONTDOOR_FOLLOWERS and replicas_equal(v0)
+        host = view.host_table()
+        idx = np.unique(rng.integers(0, n, 4096))
+        rows = host[idx].copy()
+        rows[:, 0] += np.float32(1.0)
+        full = host.copy()
+        full[idx] = rows
+        t0 = time.perf_counter()
+        pub.publish_state_patch(idx, rows, n, full_table=lambda: full)
+        while group.versions != [pub.version] * FRONTDOOR_FOLLOWERS:
+            if time.perf_counter() - t0 > 30:
+                raise AssertionError(f"[frontdoor]: replicas stuck at {group.versions}")
+            time.sleep(0.0005)
+        t_adopt = time.perf_counter() - t0
+        eq1 = replicas_equal(pub.version)
+        log(f"[frontdoor] FollowerGroup of {FRONTDOOR_FOLLOWERS} replicas (refresh every "
+            f"{group.refresh_interval_s * 1e3:.1f} ms): versions {vs0} against the "
+            f"leader's v{v0}, {len(sample)} bodies a replica equal to the leader's: "
+            f"{eq0}; after a patch publish (v{pub.version}) every replica adopted it in "
+            f"{1e3 * t_adopt:.2f} ms, versions {group.versions}, staleness "
+            f"{pub.version - min(group.versions)} versions, bodies equal: {eq1}; "
+            f"phase wall {time.perf_counter() - t_phase:.1f} s")
+        if not (eq0 and eq1):
+            raise AssertionError("[frontdoor]: a replica's bodies differ from the leader's")
+    finally:
+        if group is not None:
+            group.close()
+        door.close()
+        srv.close()
+        engine.close()
+
+
+def _read_http(sock, buf: bytearray) -> tuple[int, bytes]:
+    """One Content-Length-framed response off a keep-alive socket."""
+    while b"\r\n\r\n" not in buf:
+        chunk = sock.recv(65536)
+        if not chunk:
+            raise ConnectionError("peer closed mid-head")
+        buf += chunk
+    end = buf.index(b"\r\n\r\n")
+    head = bytes(buf[:end])
+    clen = 0
+    for line in head.split(b"\r\n")[1:]:
+        name, _, value = line.partition(b":")
+        if name.strip().lower() == b"content-length":
+            clen = int(value)
+    del buf[:end + 4]
+    while len(buf) < clen:
+        chunk = sock.recv(65536)
+        if not chunk:
+            raise ConnectionError("peer closed mid-body")
+        buf += chunk
+    body = bytes(buf[:clen])
+    del buf[:clen]
+    return int(head.split(None, 2)[1]), body
 
 
 def cli_sub(*argv) -> subprocess.CompletedProcess:
@@ -3092,6 +3575,7 @@ def main(argv=None) -> int:
     from analyzer_tpu_torch.sched.feed import stage_chunk_fused
     from analyzer_tpu_torch.sched.residency import resolve_fuse
     from analyzer_tpu_torch.io import _native_csv
+    from analyzer_tpu_torch.serve import _native_json
     from analyzer_tpu_torch.service import _native_sql
     from analyzer_tpu_torch.utils.profiling import trace
 
@@ -3108,7 +3592,7 @@ def main(argv=None) -> int:
     # -- 2. build (nvcc and g++ started together) ---------------------------
     build_all((("nvcc fused_window", fw.load), ("nvcc row_scatter", rs.load),
                ("g++ packer", _native.load), ("g++ fastsql", _native_sql.load),
-               ("g++ fastcsv", _native_csv.load)))
+               ("g++ fastcsv", _native_csv.load), ("g++ fastjson", _native_json.load)))
     for name, mod in (("fused_window", fw), ("row_scatter", rs)):
         for line in mod.kernel_build_log().splitlines():
             if "registers" in line or "spill" in line:
@@ -3404,7 +3888,10 @@ def main(argv=None) -> int:
 
     # -- 8. the serve plane ----------------------------------------------------
     serve_phase(cfg, pub, tier_state, n_players)
-    del tier_state, pub
+    del tier_state
+    # -- 8a. the front door, on the same plane ---------------------------------
+    frontdoor_phase(cfg, pub)
+    del pub
 
     # -- 9. the command line ------------------------------------------------
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -3516,6 +4003,13 @@ def main(argv=None) -> int:
 
     # -- 16a. the closed-loop soak ------------------------------------------
     soak_phase(dev)
+
+    # -- 16b. the multi-host fabric (the mesh seam ran in [mesh]) ------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fabric_")
+    try:
+        fabric_phase(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     # -- 17. kernel times at the main path's shapes (collect off) -------------
     slope = window_timing.measure(windows)

@@ -4,6 +4,7 @@ alone — no ``jax`` (nor ``optax`` or ``flax``, which need it), nothing of
 the CPU."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -62,7 +63,11 @@ def test_import_leaves_jax_and_reference_out():
         "             'migrate.lineage', 'migrate.progress', 'loadgen',\n"
         "             'loadgen.driver', 'loadgen.matchmaker',\n"
         "             'loadgen.outcomes', 'loadgen.shaper',\n"
-        "             'utils.ownership'):\n"
+        "             'utils.ownership', 'fabric', 'fabric.topology',\n"
+        "             'fabric.directory', 'fabric.publish', 'fabric.route',\n"
+        "             'fabric.matchmaker', 'fabric.host', 'fabric.process',\n"
+        "             'fabric.driver', 'serve.fastjson', 'serve._native_json',\n"
+        "             'serve.frontdoor'):\n"
         "    assert 'analyzer_tpu_torch.' + name in sys.modules, name\n"
         # importing builds nothing, starts no thread and parses no argv
         "import threading\n"
@@ -70,9 +75,11 @@ def test_import_leaves_jax_and_reference_out():
         "from analyzer_tpu_torch.sched import _native\n"
         "from analyzer_tpu_torch.service import _native_sql\n"
         "from analyzer_tpu_torch.io import _native_csv\n"
+        "from analyzer_tpu_torch.serve import _native_json, fastjson\n"
         "assert fused_window._lib is None and row_scatter._lib is None\n"
         "assert _native._lib is None and _native_sql._lib is None\n"
-        "assert _native_csv._lib is None\n"
+        "assert _native_csv._lib is None and _native_json._lib is None\n"
+        "assert not fastjson._native_state\n"
         "assert threading.active_count() == 1, threading.enumerate()\n"
     )
     proc = subprocess.run(
@@ -96,6 +103,51 @@ def test_no_jax_or_reference_import_in_source(path):
             if _forbidden(node.module):
                 bad.append(node.module)
     assert not bad, f"{path} imports {bad}"
+
+
+def test_fabric_host_child_leaves_jax_and_reference_out(tmp_path):
+    """A fabric host child (``python -m analyzer_tpu_torch.fabric.process``)
+    on the CPU comes up, writes its ready file and exits on the exit file
+    with neither jax nor analyzer_tpu loaded."""
+    spec = {"host": 0, "n_shards": 2, "n_hosts": 1, "n_players": 40,
+            "ready_file": str(tmp_path / "ready"),
+            "exit_file": str(tmp_path / "exit"), "device": "cpu"}
+    (tmp_path / "exit").write_text("exit\n")  # leave as soon as it is up
+    (tmp_path / "spec.json").write_text(json.dumps(spec))
+    probe = (
+        "import runpy, sys\n"
+        f"sys.argv = ['process', {str(tmp_path / 'spec.json')!r}]\n"
+        "runpy.run_module('analyzer_tpu_torch.fabric.process',\n"
+        "                 run_name='__main__', alter_sys=True)\n"
+        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{_FORBIDDEN!r})\n"
+        "assert not leaked, leaked\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", probe],
+        capture_output=True, text=True, timeout=120, cwd=_REPO,
+    )
+    assert proc.returncode == 0, proc.stderr
+    ready = json.loads((tmp_path / "ready").read_text())
+    assert ready["host"] == 0 and set(ready["bringup"]) == {"context_s", "build_s"}
+
+
+def test_fabric_child_without_card_raises_before_ready(tmp_path):
+    """A child asked for the card (no ``device`` in its spec) on a machine
+    without one raises before it writes its ready file."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: nothing to refuse")
+    spec = {"host": 0, "n_shards": 2, "n_hosts": 1, "n_players": 40,
+            "ready_file": str(tmp_path / "ready"),
+            "exit_file": str(tmp_path / "exit")}
+    (tmp_path / "spec.json").write_text(json.dumps(spec))
+    proc = subprocess.run(
+        [sys.executable, "-m", "analyzer_tpu_torch.fabric.process",
+         str(tmp_path / "spec.json")],
+        capture_output=True, text=True, timeout=120, cwd=_REPO,
+    )
+    assert proc.returncode != 0 and "CUDA" in proc.stderr
+    assert not (tmp_path / "ready").exists()
 
 
 def test_cuda_request_without_card_raises():

@@ -25,8 +25,9 @@ Inside the port, the ``deterministic`` block is BIT-IDENTICAL run to run,
 with the queries in-process or over HTTP, across ``broker_partitions`` 1 /
 4 (with priority lanes), ``serve_shards`` 1 / 4, and with the migration on
 or off (which also cuts over a migrated lineage equal to its from-scratch
-reference). ``cli soak`` exits 0 with the JAX artifact's shape and refuses
-the fabric (ROADMAP A15b) and the front door (ROADMAP A11c) with exit 2.
+reference), and with the queries through the serve front door
+(``serve_http``). ``cli soak`` exits 0 with the JAX artifact's shape; ``cli
+soak --hosts`` runs the fabric soak and ``--serve-http`` the front door.
 The port has nothing jitted, so ``retraces_steady`` is always 0 and the
 flat-retrace objective passes trivially.
 
@@ -323,9 +324,15 @@ class TestSoakDeterminism:
         assert snap["gauges"]["soak.virtual_seconds"] >= SMOKE.duration_s
 
 
-def test_serve_http_waits_for_the_front_door():
-    with pytest.raises(NotImplementedError, match="ROADMAP A11c"):
-        SoakDriver(dataclasses.replace(SMOKE, serve_http=True), device="cpu")
+def test_serve_http_waits_for_the_front_door(smoke_artifacts):
+    """``serve_http=True`` (once refused) queries through the front door:
+    the same deterministic block as the in-process run, every response
+    encoded by the native codec."""
+    art = _soak(dataclasses.replace(SMOKE, serve_http=True))
+    assert art["slo"]["pass"], art["slo"]["violations"]
+    assert _block(art) == _block(smoke_artifacts[0])
+    fd = art["frontdoor"]
+    assert fd["encodes"] > 0 and fd["native"] and fd["fallbacks"] == 0
 
 
 # -- cli soak ----------------------------------------------------------------------
@@ -355,15 +362,31 @@ def test_cli_soak_writes_the_jax_artifact_shape(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--hosts", "2"], "ROADMAP A15b"),
-    (["--fabric-shards", "4"], "ROADMAP A15b"),
-    (["--hosts", "2", "--fabric-shards", "4"], "ROADMAP A15b"),
-    (["--serve-http"], "ROADMAP A11c"),
+    (["--hosts", "2"], "fabric"),
+    (["--fabric-shards", "4"], "soak"),
+    (["--hosts", "2", "--fabric-shards", "4"], "fabric"),
+    (["--serve-http"], "frontdoor"),
 ])
 def test_cli_soak_refusals_name_the_item(argv, item, capsys):
-    assert cli.main(["soak", "--device", "cpu", *argv]) == 2
-    err = capsys.readouterr().err
-    assert item in err and "A13" not in err and "A15a" not in err
+    """The four flag sets once refused now run: ``--hosts`` the fabric soak
+    (a FABRIC line, 2 hosts over 4 shards), ``--fabric-shards`` alone the
+    ordinary soak as in JAX (the flag configures only ``--hosts``, so the
+    line equals the run without it), ``--serve-http`` the soak over the
+    front door (the in-process run's block)."""
+    base = [a for a in SOAK_ARGS if a != "--in-process"]
+    assert cli.main([*base, "--device", "cpu", *argv]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["slo"]["pass"]
+    if item == "fabric":
+        assert line["metric"] == "fabric.matches_per_sec_per_host"
+        assert [h["host"] for h in line["measured"]["bringup"]] == [0, 1]
+        assert line["deterministic"]["matches_rated"] == (
+            line["deterministic"]["matches_published"])
+        return
+    assert line["metric"] == "soak.matches_per_sec"
+    assert cli.main([*SOAK_ARGS, "--device", "cpu"]) == 0
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["deterministic"] == want["deterministic"]
 
 
 @pytest.mark.parametrize("argv", [

@@ -567,6 +567,13 @@ class TestLineageCutover:
             live.cutover_from(other)
 
     def test_abort_leaves_live_untouched_and_fabric_waits(self):
+        """Abort leaves the live lineage as it was, for a plain staging
+        lineage and for the fabric's (``begin_fabric``, once refused), which
+        wraps a staging lineage of the live plane's topology."""
+        from analyzer_tpu_torch.fabric import (
+            FabricDirectory, FabricShardPublisher, FabricTopology,
+        )
+
         live = ViewPublisher(device="cpu")
         live.publish_rows(["a"], _rows(1, 1.0))
         before = live.current()
@@ -574,8 +581,15 @@ class TestLineageCutover:
         lineage.begin().publish_state(PlayerState.create(2, cfg=CFG, device="cpu"))
         lineage.abort()
         assert live.current() is before and live.version == 1
-        with pytest.raises(NotImplementedError, match="ROADMAP A15b"):
-            lineage.begin_fabric("dir", 0)
+        sharded = ShardedViewPublisher(2, device="cpu")
+        lineage = LineageManager(sharded)
+        directory = FabricDirectory(FabricTopology(2, 2))
+        wrapped = lineage.begin_fabric(directory, 1, clock=lambda: 5.0)
+        assert isinstance(wrapped, FabricShardPublisher)
+        assert isinstance(lineage.staging, ShardedViewPublisher)
+        assert wrapped.inner is lineage.staging and wrapped.owned == {1}
+        lineage.abort()
+        assert lineage.staging is None and sharded.current() is None
 
     def test_run_migration_cuts_over_a_served_table(self, tmp_path):
         data, _ = _csv_bytes(tmp_path, 300, seed=61)

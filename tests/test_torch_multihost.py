@@ -15,6 +15,24 @@ mesh, and that data-parallel training equals single-device training within
 ``MESH_ATOL`` (tests/test_torch_models.py). Runs at 2, 4 and 8 ranks print
 the same table digest as the parent's single-device run. ``cli rate --mesh 0``
 in two processes writes the checkpoint ``cli rate`` writes alone.
+
+The fabric seam (``rate_history_sharded(fabric_directory=)``) across two
+processes. JAX's branch wraps the publisher for host
+``jax.process_index()`` of a ``FabricTopology(D, 2)``, and its filter
+keeps the patches of the shards that host OWNS, ``s % 2 == host``: at
+D = 2, process 0 publishes shard 0 and process 1 shard 1; at D = 4,
+process 0 publishes shards 0 and 2, process 1 shards 1 and 3. What a
+process HOLDS is another set: D / 2 consecutive shards (process 0 holds 0
+and 1 at D = 4), in JAX's global mesh and in the port's. So at D = 4 a
+process owns a shard it does not hold (JAX's ``publish_views`` then
+indexes a block that is not addressable in that process; its own test
+only ever runs one process with ``process_count`` patched). The port
+keeps JAX's ownership and gathers every shard's block for the publish.
+Each rank here asserts the same sets as JAX's filter: the rows of the
+shards it owns equal the final table bit for bit, the rows of the others
+hold the table of the first publish (the rebuild every first publish
+makes, tests/test_torch_fabric.py), and its directory records its own
+version only.
 """
 
 import functools
@@ -136,6 +154,17 @@ class TestGlooProcesses:
         assert [r["rank"] for r in results] == list(range(world))
         assert {r["digest"] for r in results} == {_single_digest()}
 
+    @pytest.mark.parametrize("n_shards", [2, 4])
+    def test_fabric_publisher_owned_shards(self, n_shards):
+        """Rank r publishes the shards ``s % 2 == r`` (JAX's ownership),
+        whatever shards it holds; see the module docstring."""
+        results = _workers(world=2, n_shards=n_shards)
+        for r in results:
+            fab = r["fabric"]
+            assert fab["owned"] == [s for s in range(n_shards) if s % 2 == r["rank"]]
+            assert fab["owned_rows_final"] and fab["foreign_rows_first_publish"]
+            assert fab["vector"] == {str(r["rank"]): fab["version"]}
+
     def test_training_all_reduce_equals_single_device(self):
         results = _workers(world=2, n_shards=2)
         for r in results:
@@ -245,6 +274,8 @@ def _worker(addr: str, rank: int, world: int, n_shards: int) -> dict:
         except ValueError as err:
             out["publisher_refused"] = "multi-process mesh" in str(err)
 
+        out["fabric"] = _fabric_seam(state, sched, cfg, mesh, rank, world)
+
         rng = np.random.default_rng(5)
         x = rng.normal(size=(600, 5)).astype(np.float32)
         y = (rng.random(600) < 0.5).astype(np.float32)
@@ -256,6 +287,37 @@ def _worker(addr: str, rank: int, world: int, n_shards: int) -> dict:
         return out
     finally:
         dist.destroy_process_group()
+
+
+def _fabric_seam(state, sched, cfg, mesh, rank: int, world: int) -> dict:
+    """``rate_history_sharded(fabric_directory=)`` on this rank, publishing
+    after every chunk of 7 steps: which rows of the published view equal
+    the final table and which the first publish's."""
+    from analyzer_tpu_torch.fabric import FabricDirectory, FabricTopology
+    from analyzer_tpu_torch.parallel import rate_history_sharded
+    from analyzer_tpu_torch.sched import rate_history
+    from analyzer_tpu_torch.serve import ShardedViewPublisher
+
+    d = mesh.n_shards
+    directory = FabricDirectory(FabricTopology(d, world))
+    pub = ShardedViewPublisher(d, min_publish_interval_s=0.0, device="cpu")
+    final = rate_history_sharded(state, sched, cfg, mesh=mesh, steps_per_chunk=7,
+                                 view_publisher=pub, fabric_directory=directory)
+    first = rate_history(state, sched, cfg, stop_after=7)[0].table.numpy()
+    got, ft = pub.current().host_table(), final.table.numpy()
+    owned = [s for s in range(d) if s % world == rank]
+    rows = range(state.n_players)
+    return {
+        "owned": owned,
+        "owned_rows_final": all(
+            np.array_equal(got[r], ft[r], equal_nan=True)
+            for r in rows if r % d in owned),
+        "foreign_rows_first_publish": all(
+            np.array_equal(got[r], first[r], equal_nan=True)
+            for r in rows if r % d not in owned),
+        "version": pub.version,
+        "vector": {str(h): v for h, v in directory.vector().items()},
+    }
 
 
 if __name__ == "__main__":

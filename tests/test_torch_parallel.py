@@ -415,10 +415,30 @@ class TestGuards:
         assert text in msg
 
     def test_fabric_directory_waits_for_a15(self):
+        """``fabric_directory=`` (once refused) wraps the sharded publisher
+        for host 0 of the directory's topology: the table is the plain
+        run's, the view's host-0 rows equal it, and the directory holds the
+        publisher's version; a directory over other shards is refused."""
+        from analyzer_tpu_torch.fabric import FabricDirectory, FabricTopology
+        from analyzer_tpu_torch.serve import ShardedViewPublisher
+
         state, sched = _setup(n_matches=20)
-        with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-            rate_history_sharded(state, sched, CFG, mesh=make_mesh(2, device=CPU),
-                                 fabric_directory=object())
+        want = rate_history_sharded(state, sched, CFG, mesh=make_mesh(2, device=CPU))
+        directory = FabricDirectory(FabricTopology(2, 2))
+        pub = ShardedViewPublisher(2, min_publish_interval_s=0.0, device=CPU)
+        got = rate_history_sharded(state, sched, CFG, mesh=make_mesh(2, device=CPU),
+                                   view_publisher=pub, fabric_directory=directory)
+        table = got.table.numpy()
+        assert np.array_equal(table, want.table.numpy(), equal_nan=True)
+        assert directory.vector() == {0: pub.version} and pub.version >= 1
+        view = pub.current().host_table()
+        rows = np.arange(0, state.n_players, 2)
+        assert np.array_equal(view[rows], table[rows], equal_nan=True)
+        with pytest.raises(ValueError, match="must agree"):
+            rate_history_sharded(
+                state, sched, CFG, mesh=make_mesh(2, device=CPU),
+                view_publisher=ShardedViewPublisher(2, device=CPU),
+                fabric_directory=FabricDirectory(FabricTopology(4, 2)))
 
     def test_make_mesh_validation(self):
         with pytest.raises(ValueError, match="at least one shard"):
