@@ -1,6 +1,7 @@
 """Command-line interface of the port: ``python -m analyzer_tpu_torch.cli
 synth | rate | migrate | serve | query | worker | soak | fabric | bench |
-metrics | history | trace | profile | elo | train | quality | fleet``.
+benchdiff | tune | metrics | history | trace | profile | elo | train |
+quality | fleet``.
 
 Counterparts of the same subcommands of ``analyzer_tpu.cli``, with the JAX
 package's flags, defaults, error texts (exit 2) and JSON lines.
@@ -62,7 +63,14 @@ flags, exit codes and JSON.
 ``bench`` is the headline capture (:mod:`analyzer_tpu_torch.bench`: the
 BENCH line, with ``--ingest`` the ingest line, with ``--migrate`` the
 migration line), with the JAX package's flags routed into the same env
-knobs.
+knobs. ``benchdiff`` is the regression gate over two artifacts of a
+family (BENCH, SERVE_BENCH, INGEST, MIGRATE, SOAK, FABRIC;
+:mod:`analyzer_tpu_torch.obs.benchdiff`): exit 1 on a gated regression or
+a violated absolute gate, 2 on unreadable input. ``tune`` is the tuning
+advisor (:mod:`analyzer_tpu_torch.obs.advisor`): a deterministic report of
+the knobs those artifacts and a profile capture point at. The JAX
+package's ``cli lint`` has no counterpart: ``tests/test_torch_lint.py``
+runs graftlint over the port.
 
 ``migrate`` is the zero-downtime re-rate of a CSV history
 (:mod:`analyzer_tpu_torch.migrate`): the streamed decode -> assign ->
@@ -1302,6 +1310,318 @@ def cmd_bench(args) -> int:
     return 0
 
 
+def cmd_benchdiff(args) -> int:
+    """Bench trajectory gate: per-config deltas between two BENCH_*.json
+    artifacts; non-zero exit past ``--regress-pct`` (obs/benchdiff.py)."""
+    from analyzer_tpu_torch.obs.benchdiff import (
+        bench_configs,
+        diff_configs,
+        family_configs,
+        find_bench_artifacts,
+        latest_artifact,
+        load_bench,
+        render_diff,
+    )
+
+    paths = args.artifacts
+    if args.against_latest:
+        if len(paths) > 1:
+            print(
+                "error: --against-latest takes at most one artifact (the "
+                "candidate)", file=sys.stderr,
+            )
+            return 2
+        if paths:
+            b_path = paths[0]
+            a_path = latest_artifact(
+                args.dir, exclude=b_path, family=args.family
+            )
+        else:
+            arts = find_bench_artifacts(args.dir, family=args.family)
+            a_path, b_path = (arts[-2], arts[-1]) if len(arts) >= 2 else (None, None)
+        if a_path is None or b_path is None:
+            from analyzer_tpu_torch.obs.benchdiff import FAMILIES
+
+            print(
+                f"error: not enough {FAMILIES[args.family]}_*.json "
+                f"artifacts under {args.dir}",
+                file=sys.stderr,
+            )
+            return 2
+    elif len(paths) == 2:
+        a_path, b_path = paths
+    else:
+        print(
+            "error: benchdiff needs two artifacts (baseline candidate) or "
+            "--against-latest", file=sys.stderr,
+        )
+        return 2
+    try:
+        a_raw = load_bench(a_path)
+        b_raw = load_bench(b_path)
+        a = family_configs(bench_configs(a_raw), args.family)
+        b = family_configs(bench_configs(b_raw), args.family)
+    except (OSError, ValueError) as err:
+        print(f"error: {err}", file=sys.stderr)
+        return 2
+    rc = 0
+    if args.family == "soak":
+        # The soak family's ABSOLUTE half: SLOs re-derived from the
+        # candidate's deterministic block (zero dead-letters, flat
+        # steady-state retraces, bounded view staleness, drained
+        # backlog), gated on the candidate alone — a regression-free
+        # delta must not mask a violated SLO.
+        from analyzer_tpu_torch.obs.benchdiff import soak_slo_violations
+
+        violations = soak_slo_violations(b_raw)
+        for v in violations:
+            print(f"SLO VIOLATION: {v}")
+        if violations:
+            print(
+                f"error: {os.path.basename(b_path)} violates "
+                f"{len(violations)} soak SLO(s)", file=sys.stderr,
+            )
+            rc = 1
+        # The vanished-block contract for the rating-quality plane: a
+        # baseline whose artifact carried a calibration `quality` block
+        # and a candidate without one means the ledger silently
+        # disengaged (quality=False leaked into CI, or the scoring
+        # site was dropped) — a delta gate would just diff fewer
+        # configs and report "no regressions".
+        a_quality = isinstance(a_raw.get("quality"), dict)
+        b_quality = isinstance(b_raw.get("quality"), dict)
+        if a_quality and not b_quality:
+            print(
+                f"error: {os.path.basename(b_path)} has no rating-quality "
+                f"block but {os.path.basename(a_path)} does (calibration "
+                "ledger silently disengaged?)",
+                file=sys.stderr,
+            )
+            return 1
+    if args.family == "fabric":
+        # The fabric family's ABSOLUTE half, gated on the candidate
+        # alone: lost work, dead letters, view staleness past the
+        # configured tick bound, per-host steady-state retraces,
+        # burning fleet objectives.
+        from analyzer_tpu_torch.obs.benchdiff import fabric_slo_violations
+
+        violations = fabric_slo_violations(b_raw)
+        for v in violations:
+            print(f"SLO VIOLATION: {v}")
+        if violations:
+            print(
+                f"error: {os.path.basename(b_path)} violates "
+                f"{len(violations)} fabric SLO(s)", file=sys.stderr,
+            )
+            rc = 1
+        # The vanished-block contract for the fabric: a baseline
+        # captured over a real multi-host topology and a candidate
+        # whose fleet block reports a single process means the soak
+        # silently fell back to one host — the exact regression this
+        # family exists to catch (a single-process capture flatters
+        # every remote-path number), and one a delta gate would merely
+        # call "faster".
+        a_hosts = int((a_raw.get("fleet") or {}).get("n_hosts") or 1)
+        b_hosts = int((b_raw.get("fleet") or {}).get("n_hosts") or 1)
+        if a_hosts > 1 and b_hosts <= 1:
+            print(
+                f"error: {os.path.basename(b_path)} captured a "
+                f"single-process topology but {os.path.basename(a_path)} "
+                f"ran {a_hosts} hosts (silent fall-back to "
+                "single-process?)", file=sys.stderr,
+            )
+            return 1
+    if args.family == "tiered" and a and not b:
+        # The baseline captured a tiered block but the candidate has
+        # none: the run silently fell back to untiered — exactly the
+        # regression this family exists to catch.
+        print(
+            f"error: {os.path.basename(b_path)} has no tiered capture "
+            f"but {os.path.basename(a_path)} does (silent fall-back to "
+            "untiered?)", file=sys.stderr,
+        )
+        return 1
+    if args.family == "ingest":
+        # The vanished-block contract for the ingest plane: a baseline
+        # captured with the native columnar decoder and a candidate
+        # without it means the decode silently fell back to the python
+        # codec — the exact regression this family exists to catch, and
+        # one a delta gate would merely report as "slower".
+        a_native = bool((a_raw.get("ingest") or {}).get("native"))
+        b_native = bool((b_raw.get("ingest") or {}).get("native"))
+        if a_native and not b_native:
+            print(
+                f"error: {os.path.basename(b_path)} has no native "
+                f"columnar-decode capture but {os.path.basename(a_path)} "
+                "does (silent fallback to the python codec?)",
+                file=sys.stderr,
+            )
+            return 1
+    if args.family == "migrate":
+        # The vanished-block contract for the migration engine: a
+        # baseline captured with the STREAMED backfill (decode->assign->
+        # scan overlapped) and a candidate whose capture fell back to
+        # the offline re-rate shape means the streaming front half
+        # silently disengaged — the exact regression this family exists
+        # to catch, and one a delta gate would merely call "slower".
+        a_streamed = bool((a_raw.get("migrate") or {}).get("streamed"))
+        b_streamed = bool((b_raw.get("migrate") or {}).get("streamed"))
+        if a_streamed and not b_streamed:
+            print(
+                f"error: {os.path.basename(b_path)} has no streamed "
+                f"backfill capture but {os.path.basename(a_path)} does "
+                "(silent fall-back to the offline re-rate?)",
+                file=sys.stderr,
+            )
+            return 1
+        # And the assign-native contract (same pattern as the ingest
+        # family's python-codec gate): a baseline whose front half ran
+        # the GIL-released native windowed first-fit and a candidate
+        # whose assign block reports native: false means the assigner
+        # silently fell back to the python recurrence — a ~two-orders
+        # front-half slowdown a delta gate would merely call "slower".
+        a_native = bool((a_raw.get("assign") or {}).get("native"))
+        b_native = bool((b_raw.get("assign") or {}).get("native"))
+        if a_native and not b_native:
+            print(
+                f"error: {os.path.basename(b_path)} has no native "
+                f"windowed-assigner capture but {os.path.basename(a_path)} "
+                "does (silent fall-back to the python first-fit "
+                "recurrence?)",
+                file=sys.stderr,
+            )
+            return 1
+    if args.family == "serve":
+        # Same vanished-block contract for the shard plane: a baseline
+        # with sharded.* configs and a candidate without them means the
+        # bench silently fell back to the single-device engine.
+        a_sharded = any(c.name.startswith("sharded.") for c in a)
+        b_sharded = any(c.name.startswith("sharded.") for c in b)
+        if a_sharded and not b_sharded:
+            print(
+                f"error: {os.path.basename(b_path)} has no sharded "
+                f"capture but {os.path.basename(a_path)} does (silent "
+                "fall-back to the single-device serve plane?)",
+                file=sys.stderr,
+            )
+            return 1
+        # And the front door's native-codec contract (same pattern as
+        # the migrate family's assign-native gate): a baseline whose
+        # socket plane rendered every response through the zero-copy
+        # native codec and a candidate reporting native: false means the
+        # codec silently fell back to python json.dumps — a route flip a
+        # delta gate would merely call "slower".
+        a_native = bool((a_raw.get("frontdoor") or {}).get("native"))
+        b_native = bool((b_raw.get("frontdoor") or {}).get("native"))
+        if a_native and not b_native:
+            print(
+                f"error: {os.path.basename(b_path)} has no native-codec "
+                f"front door capture but {os.path.basename(a_path)} does "
+                "(silent fall-back to the python json encoder?)",
+                file=sys.stderr,
+            )
+            return 1
+    # The vanished-block contract for profile intelligence (any family —
+    # bench --profile stamps the block wherever a capture was armed): a
+    # baseline whose device profile parsed and a candidate whose profile
+    # block is missing or reports parsed:false means the candidate
+    # silently stopped attributing its captures — its roofline rides
+    # wall time again, and a delta gate would never notice.
+    a_parsed = bool((a_raw.get("profile") or {}).get("parsed"))
+    b_parsed = bool((b_raw.get("profile") or {}).get("parsed"))
+    if a_parsed and not b_parsed:
+        print(
+            f"error: {os.path.basename(b_path)} has no parsed device "
+            f"profile but {os.path.basename(a_path)} does (capture "
+            "attribution silently broke?)", file=sys.stderr,
+        )
+        return 1
+    if args.family in ("bench", "tiered"):
+        # Absolute tracing-tax gate on the candidate alone: the bench's
+        # trace_overhead block (tracing-on vs tracing-off on the same
+        # config) must stay <= TRACE_OVERHEAD_MAX_PCT — causal tracing
+        # that stops being ~free would silently tax every traced run.
+        from analyzer_tpu_torch.obs.benchdiff import trace_overhead_violations
+
+        overhead = trace_overhead_violations(b_raw)
+        for v in overhead:
+            print(f"TRACE OVERHEAD VIOLATION: {v}")
+        if overhead:
+            print(
+                f"error: {os.path.basename(b_path)} fails the tracing "
+                "overhead gate", file=sys.stderr,
+            )
+            rc = 1
+        # Same absolute contract for the live SLO plane: the bench's
+        # watchdog_overhead block (sampler+watchdog+audit on vs off on
+        # the same e2e line) must stay <= WATCHDOG_OVERHEAD_MAX_PCT.
+        from analyzer_tpu_torch.obs.benchdiff import watchdog_overhead_violations
+
+        wd_overhead = watchdog_overhead_violations(b_raw)
+        for v in wd_overhead:
+            print(f"WATCHDOG OVERHEAD VIOLATION: {v}")
+        if wd_overhead:
+            print(
+                f"error: {os.path.basename(b_path)} fails the SLO-plane "
+                "overhead gate", file=sys.stderr,
+            )
+            rc = 1
+        # And for the fleet plane: the bench's federate_overhead block
+        # (a Collector scraping obsd under load vs unscraped on the
+        # same e2e line) must stay <= FEDERATE_OVERHEAD_MAX_PCT.
+        from analyzer_tpu_torch.obs.benchdiff import federate_overhead_violations
+
+        fed_overhead = federate_overhead_violations(b_raw)
+        for v in fed_overhead:
+            print(f"FEDERATE OVERHEAD VIOLATION: {v}")
+        if fed_overhead:
+            print(
+                f"error: {os.path.basename(b_path)} fails the "
+                "federation overhead gate", file=sys.stderr,
+            )
+            rc = 1
+    rows = diff_configs(a, b, args.regress_pct)
+    sys.stdout.write(render_diff(a_path, b_path, rows))
+    if any(r.regressed and r.gated for r in rows):
+        print(
+            f"error: throughput regressed more than {args.regress_pct:g}%",
+            file=sys.stderr,
+        )
+        return 1
+    return rc
+
+
+def cmd_tune(args) -> int:
+    """Tuning advisor (obs/advisor.py): a deterministic rule table over
+    the artifacts the repo already emits (BENCH/SOAK/INGEST/MIGRATE
+    JSON, history rings, profile attribution) that names the bottleneck
+    and recommends concrete knob changes, each citing its evidence.
+    Same inputs produce a byte-identical report — pipe it into a file
+    and diff across runs. Exit 0 with findings or without; exit 2 only
+    when no artifact loads at all."""
+    from analyzer_tpu_torch.obs.advisor import advise, gather_inputs, render_report
+
+    inputs = gather_inputs(
+        paths=args.artifacts,
+        scan_dir=args.dir if not args.artifacts else None,
+        profile_dir=args.profile,
+    )
+    if not inputs["artifacts"] and not inputs["history"] \
+            and inputs["profile"] is None:
+        print(
+            f"error: no artifacts loaded (looked at "
+            f"{args.artifacts or args.dir})", file=sys.stderr,
+        )
+        return 2
+    report = advise(inputs)
+    if args.json:
+        json.dump(report, sys.stdout, indent=1, sort_keys=True)
+        sys.stdout.write("\n")
+    else:
+        sys.stdout.write(render_report(report))
+    return 0
+
+
 def cmd_worker(args) -> int:
     """The broker-consuming service loop (``service.worker.main``), or with
     ``--requeue-failed`` the dead-letter redrive. Both need pika and a
@@ -2500,6 +2820,86 @@ def build_parser() -> argparse.ArgumentParser:
         "where none is visible)",
     )
     s.set_defaults(fn=cmd_bench)
+
+    s = sub.add_parser(
+        "benchdiff",
+        help="diff two BENCH_*.json artifacts; non-zero exit on a "
+        "throughput regression past --regress-pct",
+    )
+    s.add_argument(
+        "artifacts", nargs="*",
+        help="baseline and candidate artifacts (raw bench lines or the "
+        "{parsed: ...} capture wrappers); with --against-latest, at most "
+        "the candidate",
+    )
+    s.add_argument(
+        "--against-latest", action="store_true",
+        help="compare the candidate (or the newest artifact) against the "
+        "latest other BENCH_*.json under --dir",
+    )
+    s.add_argument(
+        "--dir", default=".",
+        help="directory scanned for BENCH_*.json (default: .)",
+    )
+    s.add_argument(
+        "--regress-pct", type=float, default=5.0, metavar="PCT",
+        help="fail (exit 1) when a non-degraded config is worse by more "
+        "than PCT percent (default: 5)",
+    )
+    s.add_argument(
+        "--family",
+        choices=(
+            "bench", "serve", "tiered", "soak", "ingest", "migrate",
+            "fabric",
+        ),
+        default="bench",
+        help="artifact family for --against-latest scans: bench "
+        "(BENCH_*.json, the write path), serve (SERVE_BENCH_*.json — "
+        "queries/sec + p99 latency, experiments/serve_bench.py), "
+        "tiered (the same BENCH_*.json artifacts, gating only the "
+        "tiered-table configs — min_over_resident + hit rate; a "
+        "candidate that silently dropped its tiered block fails), or "
+        "soak (SOAK_*.json from `cli soak` — throughput/p99 regression "
+        "PLUS the absolute SLOs: zero dead-letters, flat steady-state "
+        "retraces, bounded view staleness, drained backlog), or ingest "
+        "(INGEST_BENCH_*.json from `cli bench --ingest` — decoded "
+        "bytes/s, queue-to-H2D p99, arena hit rate; a candidate whose "
+        "decode silently fell back to the python codec fails), or "
+        "migrate (MIGRATE_BENCH_*.json from `cli bench --migrate` — "
+        "backfill matches/s, live serve p99 under concurrent migration, "
+        "cutover pause ms; a candidate whose backfill silently fell "
+        "back to the offline re-rate fails), or fabric "
+        "(FABRIC_BENCH_*.json from `cli soak --hosts N` — per-host "
+        "ingest matches/s, routed-query p99, worst per-host view "
+        "staleness, plus the fleet-scope absolute SLOs; a candidate "
+        "that silently fell back to a single-process topology fails); "
+        "explicit two-path diffs auto-detect from the metric name",
+    )
+    s.set_defaults(fn=cmd_benchdiff)
+
+    s = sub.add_parser(
+        "tune",
+        help="telemetry-driven tuning advisor: name the bottleneck and "
+        "the knob from bench/soak/migrate artifacts, history rings and "
+        "profile captures (deterministic)",
+    )
+    s.add_argument(
+        "artifacts", nargs="*",
+        help="artifact paths (BENCH/SOAK/INGEST/MIGRATE_BENCH JSON, a "
+        "history.json or flight-dump dir); none = scan --dir",
+    )
+    s.add_argument(
+        "--dir", default=".",
+        help="directory scanned for artifacts when none are named "
+        "(default: .)",
+    )
+    s.add_argument(
+        "--profile", metavar="DIR",
+        help="also attribute a device-profiler capture dir and feed its "
+        "busy/idle split to the rules",
+    )
+    s.add_argument("--json", action="store_true", help="JSON output")
+    s.set_defaults(fn=cmd_tune)
 
     s = sub.add_parser(
         "metrics",

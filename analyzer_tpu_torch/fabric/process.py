@@ -53,12 +53,12 @@ def main(argv=None) -> None:
     from analyzer_tpu_torch.device import resolve_device
     from analyzer_tpu_torch.fabric.host import FabricHost, FabricHostConfig
 
-    t0 = time.perf_counter()  # measured bring-up, not a decision input
+    t0 = time.perf_counter()  # graftlint: disable=GL048 — measured bring-up seconds (the ready file's bringup), not a decision input
     device = resolve_device(spec.get("device"))
     if device.type == "cuda":
         torch.zeros(1, device=device)
         torch.cuda.synchronize(device)
-    t1 = time.perf_counter()
+    t1 = time.perf_counter()  # graftlint: disable=GL048 — measured bring-up seconds, not a decision input
     cfg = FabricHostConfig(
         host=spec["host"],
         n_shards=spec["n_shards"],
@@ -71,7 +71,7 @@ def main(argv=None) -> None:
         device=str(device),
     )
     host = FabricHost(cfg)
-    t2 = time.perf_counter()
+    t2 = time.perf_counter()  # graftlint: disable=GL048 — measured bring-up seconds, not a decision input
     tmp = spec["ready_file"] + ".tmp"
     with open(tmp, "w", encoding="utf-8") as f:
         json.dump(
@@ -86,9 +86,9 @@ def main(argv=None) -> None:
             f,
         )
     os.replace(tmp, spec["ready_file"])
-    deadline = time.time() + float(spec.get("max_wall_s", 600.0))
-    while time.time() < deadline and not os.path.exists(spec["exit_file"]):
-        time.sleep(0.05)
+    deadline = time.time() + float(spec.get("max_wall_s", 600.0))  # graftlint: disable=GL048 — subprocess liveness deadline, wall-shaped by nature
+    while time.time() < deadline and not os.path.exists(spec["exit_file"]):  # graftlint: disable=GL048 — subprocess liveness poll, wall-shaped by nature
+        time.sleep(0.05)  # graftlint: disable=GL048 — idle wait for the parent's exit signal
     if spec.get("trace_out"):
         from analyzer_tpu_torch.obs.snapshot import write_chrome_trace
 

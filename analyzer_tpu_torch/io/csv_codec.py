@@ -178,6 +178,7 @@ def _parse(f) -> MatchStream:
     winner = np.zeros(n, dtype=np.int32)
     mode_id = np.zeros(n, dtype=np.int32)
     afk = np.zeros(n, dtype=bool)
+    # graftlint: disable=GL031 — permissive csv-module fallback, not the hot path (that is io/ingest.py)
     for i, r in enumerate(rows):
         mode_id[i] = constants.MODE_TO_ID.get(r[1], constants.UNSUPPORTED_MODE_ID)
         winner[i] = int(r[2])

@@ -46,12 +46,18 @@ and the device-aware ones, rebuilt on PyTorch:
     busy/idle split and the host-trace join of a capture
     (``cli profile``).
 
+and the offline tools over the artifacts the port writes:
+
+  * :mod:`~analyzer_tpu_torch.obs.benchdiff` — the regression gate over
+    two artifacts of a family (``cli benchdiff``);
+  * :mod:`~analyzer_tpu_torch.obs.advisor` — the deterministic tuning
+    advisor (``cli tune``).
+
 No counterpart: ``analyzer_tpu.obs.retrace`` (``track_jit``,
 ``install_jax_hooks``) counts a jitted entry point's recompiles, and
 nothing in the port is jitted — every device function is eager PyTorch
 or a kernel built once — so the snapshot's ``retraces`` block stays
-empty and ``jax.retraces_total`` stays 0. Still to port (ROADMAP): the
-offline tools of A16c, ``benchdiff`` and ``advisor``.
+empty and ``jax.retraces_total`` stays 0.
 """
 
 from analyzer_tpu_torch.obs.audit import ShadowAuditor

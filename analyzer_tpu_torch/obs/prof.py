@@ -103,7 +103,9 @@ def _device_identity() -> dict:
     not fail because the card is unhappy."""
     try:
         import torch
-
+    except ImportError:
+        return {"platform": None, "device_kind": None}
+    try:
         if torch.cuda.is_available():
             return {"platform": "gpu",
                     "device_kind": str(torch.cuda.get_device_name(0))}

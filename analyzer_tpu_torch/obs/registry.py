@@ -227,9 +227,20 @@ STANDARD_COUNTERS = (
     # Lineage cutovers and follower adoptions (serve/view.py).
     "serve.view_cutovers_total",
     "serve.view_adoptions_total",
-    # Keep-alive connection reuses saved by the pooled HTTP client
-    # (obs/httpd.py PooledHTTPClient).
+    # The serve front door (serve/frontdoor.py): requests answered across
+    # all reader loops, response bytes rendered (native codec + counted
+    # python fallbacks), and keep-alive connection reuses saved by the
+    # pooled HTTP client (obs/httpd.py PooledHTTPClient). Pre-declared so
+    # a process without a front door reads 0.
+    "frontdoor.requests_total",
+    "frontdoor.encode_bytes_total",
+    "frontdoor.codec_fallbacks_total",
     "frontdoor.pool_reuse_total",
+    # The partitioned broker's priority lanes (service/broker.py):
+    # backfill messages admitted behind live traffic, and messages the
+    # admission controller held back for host headroom.
+    "broker.backfill_admitted_total",
+    "broker.backfill_throttled_total",
     # The service worker (service/worker.py): the reference's only
     # output was debug logs; these are its operator counters.
     "worker.matches_rated_total",
@@ -341,6 +352,10 @@ STANDARD_GAUGES = (
     # Ready depth of the consume queue (labeled broker.queue_depth{queue=}
     # series appear on first sample).
     "broker.queue_depth",
+    # Partition count of the partitioned broker (1 = single queue).
+    "broker.partitions",
+    # Open sockets across the front door's reader loops.
+    "frontdoor.connections",
     # Slot occupancy of the last rated schedule (sched/runner.py).
     "sched.occupancy",
     # Ring occupancy of the prefetching feed after the last put/get
@@ -468,6 +483,11 @@ SCHEMA_HELP = {
     "serve.view_version": "current served view version",
     "serve.view_age_seconds": "seconds since the current view published",
     "serve.shards": "shard count of the serving plane (0 = single)",
+    "frontdoor.connections": "open sockets across the front door readers",
+    "frontdoor.requests_total": "requests answered by the front door",
+    "frontdoor.encode_bytes_total": "response bytes rendered by the codec",
+    "frontdoor.codec_fallbacks_total":
+        "responses the native codec routed to the python encoder",
     "frontdoor.pool_reuse_total":
         "keep-alive connection reuses by the pooled HTTP client",
     "serve.microbatch_occupancy": "per-tick serve microbatch fill",
@@ -485,6 +505,11 @@ SCHEMA_HELP = {
     "worker.pipeline_inflight": "pipelined batches submitted, not harvested",
     "worker.matches_per_sec": "worker throughput since start",
     "broker.queue_depth": "ready messages on the consume queue",
+    "broker.partitions": "partition count of the partitioned broker",
+    "broker.backfill_admitted_total":
+        "backfill messages admitted behind live traffic",
+    "broker.backfill_throttled_total":
+        "backfill messages held back for host headroom",
     "sql.native_scans_total": "queries served by the native sqlite scanner",
     "sql.native_fallbacks_total":
         "native sqlite scanner unavailable or failed: python scans instead",

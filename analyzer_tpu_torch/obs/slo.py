@@ -606,8 +606,9 @@ def soak_violations(data: dict, objectives=None) -> list[str]:
     The same table the live :class:`Watchdog` walks: doctor one
     objective and both consumers trip. The messages are the JAX
     package's, word for word, on the same artifact. The port's soak
-    driver (``loadgen/driver.py``) judges its artifact here; ``cli
-    benchdiff`` waits for ROADMAP A16c."""
+    driver (``loadgen/driver.py``) judges its artifact here, and so does
+    ``cli benchdiff --family soak``'s absolute half
+    (:func:`analyzer_tpu_torch.obs.benchdiff.soak_slo_violations`)."""
     det = data.get("deterministic")
     if not isinstance(det, dict):
         return ["artifact has no deterministic block (not a SOAK capture?)"]

@@ -219,6 +219,7 @@ def check_plan(
             f"{player_idx.shape[0]}"
         )
     recon = plan.slot_rows[plan.slot_idx]
+    # graftlint: disable=GL025 — untrusted-entry validation syncs on purpose
     want = np.asarray(player_idx[:n_steps])
     if not np.array_equal(recon, want):
         bad = np.argwhere(recon != want)[:4]
@@ -247,6 +248,7 @@ def rate_window_checked(
     from analyzer_tpu_torch.core.update import check_window_conflict_free
 
     player_idx = np.ascontiguousarray(player_idx, np.int32)
+    # graftlint: disable=GL025 — untrusted-entry validation syncs on purpose
     ratable = (np.asarray(mode_id) >= 0) & ~np.asarray(afk)
     pad_row = state.pad_row
     check_window_conflict_free(player_idx, ratable, pad_row=pad_row)
@@ -272,5 +274,6 @@ def window_reuse_stats(rows: np.ndarray) -> tuple[int, int]:
     (:mod:`analyzer_tpu_torch.parallel.mesh`), which applies it to its
     compacted row lists to report how much a per-shard fused window would
     save (``mesh.writebacks_avoidable_total``)."""
+    # graftlint: disable=GL025 — host row lists only (mesh routing input)
     rows = np.asarray(rows).ravel()
     return int(np.unique(rows).size), int(rows.size)

@@ -68,6 +68,7 @@ import torch
 
 from analyzer_tpu_torch.obs import get_registry, get_tracer
 from analyzer_tpu_torch.obs.devicemem import set_host_tier_sampler
+from analyzer_tpu_torch.utils.ownership import thread_role
 
 #: Smallest hot-set capacity: below this a single superstep rarely fits.
 MIN_HOT_ROWS = 8
@@ -250,6 +251,7 @@ class TierManager:
         )
 
     # -- producer half (feed thread) -------------------------------------
+    @thread_role("producer")
     def split_spans(self, player_idx: np.ndarray) -> list[tuple[int, int]]:
         """Cuts a chunk at step boundaries so each sub-window's distinct
         touched rows fit the hot capacity — the forced-miss / thrash path:
@@ -284,6 +286,7 @@ class TierManager:
             self._spills.add(len(spans) - 1)
         return spans
 
+    @thread_role("producer")
     def plan_rows(self, touched: np.ndarray, written: np.ndarray) -> TierPlan:
         """The page-table transaction for one dispatch window: ``touched``
         (unique, pad-free) must all be resident when the window runs,
@@ -377,6 +380,7 @@ class TierManager:
             written_rows=written,
         )
 
+    @thread_role("producer")
     def plan_window(self, player_idx: np.ndarray, valid: np.ndarray):
         """Reference-kernel staging of one (already budget-split)
         sub-window: plans residency for its touched rows and remaps the
@@ -393,6 +397,7 @@ class TierManager:
         hot_pidx = self._slot_lut[player_idx]
         return plan, hot_pidx
 
+    @thread_role("producer")
     def plan_fused(self, slot_rows: np.ndarray, n_live: int,
                    player_idx: np.ndarray, valid: np.ndarray):
         """Fused-kernel staging of one residency window: the fused plan
@@ -406,6 +411,7 @@ class TierManager:
         plan = self.plan_rows(touched, written)
         return plan, self._slot_lut[slot_rows]
 
+    @thread_role("producer")
     def stage_windows(self, player_idx, winner, mode_id, afk) -> TieredChunk:
         """Producer-side staging of one reference-kernel chunk: budget
         splits, per-sub-window residency plans, index remap, and the
@@ -428,6 +434,7 @@ class TierManager:
         return TieredChunk(slab.finish(self.device.type == "cuda"), parts)
 
     # -- consumer half (dispatch loop) ------------------------------------
+    @thread_role("consumer")
     def _drain(self, wait: bool = True) -> None:
         """Materializes queued writebacks into the cold tier, oldest first.
         Each entry's device-to-host copy was issued with
@@ -448,6 +455,7 @@ class TierManager:
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
+    @thread_role("consumer")
     def apply(self, table: torch.Tensor, plan: TierPlan, views=None):
         """Executes one plan against the hot table, in place, in the only
         order that is correct: materialize earlier writebacks (all of them
@@ -515,6 +523,7 @@ class TierManager:
             self._written_start[plan.written_rows] = True
         return table
 
+    @thread_role("consumer")
     def dispatch_chunk(self, table, staged: TieredChunk, views, cfg,
                        collect: bool):
         """Consumer-side dispatch of one reference-kernel tiered chunk, in
@@ -536,12 +545,14 @@ class TierManager:
             return None
         return ys_parts[0] if len(ys_parts) == 1 else torch.cat(ys_parts)
 
+    @thread_role("consumer")
     def _fetch_resident(self, table, rows: np.ndarray) -> np.ndarray:
         """Current values of resident ``rows`` off the hot table (one
         gather and one synchronous fetch)."""
         slots = self._to_device(self._c_slot_of[rows]).long()
         return table.index_select(0, slots).cpu().numpy()
 
+    @thread_role("consumer")
     def full_table(self, table) -> np.ndarray:
         """The logical full ``[P+1, 16]`` table as of the last dispatched
         window: the cold tier (drained) plus the current values of every
@@ -555,6 +566,7 @@ class TierManager:
             full[resident] = self._fetch_resident(table, resident)
         return full
 
+    @thread_role("consumer")
     def full_state(self, table):
         """A PlayerState of :meth:`full_table` on the run's device
         (checkpoint hooks — one sync per snapshot, like the untiered
@@ -563,12 +575,14 @@ class TierManager:
             self._template, table=self._to_device(self.full_table(table))
         )
 
+    @thread_role("consumer")
     def finish(self, table):
         """Final state of a tiered run: drain, reconstruct, and return a
         PlayerState bit-identical to the untiered runner's."""
         return self.full_state(table)
 
     # -- serve-view publish ------------------------------------------------
+    @thread_role("consumer")
     def publish_view(self, publisher, table, force: bool = True):
         """Publishes the logical table through ``publisher`` from the hot
         set: rows written since the last publish come from the hot table
@@ -591,6 +605,7 @@ class TierManager:
         self._written_pub[:] = False
         return view
 
+    @thread_role("consumer")
     def maybe_publish_view(self, publisher, table):
         """Throttled :meth:`publish_view` — the chunk-boundary hook."""
         return self.publish_view(publisher, table, force=False)

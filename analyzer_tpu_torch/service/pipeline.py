@@ -101,6 +101,7 @@ from analyzer_tpu_torch.obs.tracer import bind_trace, current_trace
 from analyzer_tpu_torch.sched.feed import stage_chunk
 from analyzer_tpu_torch.sched.runner import _Fetch, _gather_outputs, _reference_chunk_
 from analyzer_tpu_torch.service.columnar import finalize
+from analyzer_tpu_torch.utils.ownership import thread_role
 
 logger = get_logger(__name__)
 
@@ -269,16 +270,19 @@ class _Writer(threading.Thread):
         self._active = False
         self._stop_requested = False
 
+    @thread_role("any")
     def submit(self, job: _Job) -> None:
         with self.cv:
             self.jobs.append(job)
             self.cv.notify_all()
 
+    @thread_role("any")
     def stop(self) -> None:
         with self.cv:
             self._stop_requested = True
             self.cv.notify_all()
 
+    @thread_role("any")
     def wait_left(self, seq: int) -> bool:
         """Blocks until every job with ``seq' <= seq`` has left the
         writer (ok OR aborted). Returns False when the stream is
@@ -294,6 +298,7 @@ class _Writer(threading.Thread):
                 self.cv.wait(0.1)
             return not self.poisoned
 
+    @thread_role("any")
     def wait_idle(self) -> None:
         """Blocks until the queue is empty and nothing is mid-flight.
         Used by harvest after a failure: every queued job drains to
@@ -311,6 +316,7 @@ class _Writer(threading.Thread):
                     break
                 self.cv.wait(0.1)
 
+    @thread_role("consumer")
     def run(self) -> None:
         try:
             self.store = self._store_factory()

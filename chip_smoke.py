@@ -73,6 +73,15 @@ lines:
      published view equal to the reference runner's bit for bit, non-owned
      rows the first publish's, the directory's version the publisher's,
      ``row_scatter`` launched once a superstep and timed;
+  6b. overhead: ``python -m analyzer_tpu_torch.experiments.sharded_overhead``'s
+     D=1 ablation on the first 100,000 matches of the history over the whole
+     player table (an eager schedule): plain (the reference runner's chunk),
+     sharded (``sharded_step_fn`` with ``build_routing``: prior assembly,
+     then ``row_scatter(mode="drop")``) and nopsum (priors by a direct
+     gather), each the minimum of two runs after a warm-up: the three tables
+     equal ``rate_history(kernel="reference")``'s bit for bit, one run of
+     each sharded arm launches ``row_scatter`` once a superstep, and the
+     split and each arm's ms a superstep are printed;
   7. tier: the prefix through ``rate_history(kernel="fused",
      hot_rows=262144, view_publisher=pub)`` — a hot set of 17% of the
      players over a pinned host tier — with the kernel's launch count taken
@@ -98,7 +107,13 @@ lines:
      byte-equal to the stdlib plane's, the native codec with 0 fallbacks,
      requests/s and p50 / p99 of both planes printed; a ``FollowerGroup``
      of 2 replicas serves the leader's bytes at the leader's version before
-     and after one patch publish (the adoption time printed);
+     and after one patch publish (the adoption time printed); the door's
+     clients read responses with ``experiments.serve_bench``'s reader, and
+     then ``python -m analyzer_tpu_torch.experiments.serve_bench
+     --frontdoor`` runs at its defaults (100,000 players): its SERVE_BENCH
+     line must show batched at 5x naive or more, the sharded plane equal to
+     the single one, the native codec with no fallback and no error, and no
+     retrace;
   9. cli: the prefix saved as npz, then ``cli rate --kernel fused --trace
      DIR --metrics-out m.json --trace-events t.jsonl`` (the streamed path)
      must report the prefix's ``players_rated`` and ``mean_mu``; in
@@ -131,6 +146,10 @@ lines:
      files equal bit for bit; then ``cli serve --db`` on the written file,
      whose ``cli query ratings`` and ``leaderboard --k 10`` bodies must
      equal the database rows exactly;
+ 12a. db-ingest: ``experiments.db_ingest`` on [db]'s database: the port's
+     ``SqlStore.load_stream`` through the native scanner and through the
+     python scan (the table on the card), each timed: the two histories
+     (stream, ids, table) equal;
  13. worker: the service_bench fixture at half its depth (25,000 matches /
      8,333 players with participant_items rows; 50,000 / 16,666 until
      [fabric] and [frontdoor] needed the time) in four copies: ``Worker(InMemoryBroker(),
@@ -245,6 +264,16 @@ lines:
      p99, the view staleness and every host's bring-up and seed seconds
      printed; then ``cli fabric --hosts 2 --shards 4``: each host's
      ``/statusz`` ``fabric`` block, and exit 0 on an interrupt;
+ 16c. offline: the artifact lines this run printed ([bench]'s BENCH line,
+     [ingest]'s, [migrate]'s ``bench --migrate`` line, soak A's SOAK
+     line, the 2-host FABRIC line, [frontdoor]'s SERVE_BENCH line) written to
+     a temporary directory: ``cli benchdiff --family F`` of each against
+     itself exits 0 or 1, never 2, with every delta at +0.0% (the absolute
+     gates' violations printed as they stand); a copy of the BENCH line with
+     ``fused.min_over_reference`` halfway to 1.0 exits 1 (a gated
+     REGRESSION unless the capture is degraded); ``cli tune --dir DIR
+     --profile <[main]'s capture>`` twice: exit 0, byte-identical reports,
+     the findings printed;
  17. timing: the fused window per window at the main path's shapes
      (``python -m analyzer_tpu_torch.experiments.window_timing``'s
      measurement: windows cut to 1..16 looped steps for the per-step
@@ -257,7 +286,9 @@ lines:
      the migration's ms a window by CUDA events — beside them; the row
      scatter's on [mesh]'s sharded re-rate, at its shapes, with its
      launches on [fabric]'s mesh seam and their ms a call by CUDA events
-     (``launches_fabric_seam``, ``fabric_seam_call_ms``) and the
+     (``launches_fabric_seam``, ``fabric_seam_call_ms``), on [overhead]'s two
+     sharded arms (``launches_overhead_sharded``, ``launches_overhead_nopsum``)
+     and the
      scatter-floor experiment's numbers as ``floor_*``), the error
      against its plain version, its time at its path's shapes beside the
      plain version's, the library call's and the card's bound, and the
@@ -463,6 +494,11 @@ FRONTDOOR_DEPTH = 8
 FRONTDOOR_READERS = 4
 FRONTDOOR_DISTINCT = 1_000
 FRONTDOOR_FOLLOWERS = 2
+# [overhead]: JAX's D=1 ablation (experiments/sharded_overhead.py, 500,000
+# matches) on the first 100,000 matches of [main]'s stream, the minimum of
+# two runs an arm after a warm-up (PERF.md section 4).
+OVERHEAD_MATCHES = 100_000
+OVERHEAD_REPEATS = 2
 
 
 def log(msg: str) -> None:
@@ -1758,9 +1794,8 @@ def db_phase(cli, tmp: str, dev, n_matches: int = DB_MATCHES) -> dict:
         proc.stdout.close()
     if rc != 0:
         raise AssertionError(f"cli serve --db exited {rc} after an interrupt")
-    for path in (fused_db, ref_db):
-        os.unlink(path)
-    return {"launches_db": launches}
+    os.unlink(fused_db)
+    return {"launches_db": launches, "db_path": ref_db, "n_matches": n_matches}
 
 
 def batch_split(names) -> str:
@@ -2489,7 +2524,7 @@ def bench_phase(n_matches: int) -> dict:
     return {"launches_bench": counts["fused_window_launches"], "line": line}
 
 
-def ingest_phase(tmp: str, dev, pre) -> None:
+def ingest_phase(tmp: str, dev, pre) -> dict:
     """Phase [ingest]: ``cli bench --ingest`` at its defaults with two
     repeats (native decoder, pinned slabs, arena hit rate >= 0.9, no
     fallback counted); then ``pre`` written as CSV: the native
@@ -2567,6 +2602,7 @@ def ingest_phase(tmp: str, dev, pre) -> None:
         f"{st['pinned']}")
     if rows != pre.n_matches or not st["pinned"]:
         raise AssertionError(f"[ingest]: {rows} rows staged, pinned {st['pinned']}")
+    return line
 
 
 def oracle_phase(dev, cfg, n_matches: int) -> dict:
@@ -2793,10 +2829,11 @@ def migrate_phase(cli, tmp: str, dev, cfg, state0, csv_path: str, pre,
     log(f"[migrate] phase wall {time.perf_counter() - t_phase:.1f} s")
     return {"launches_migrate": launches, "migrate_call_ms": ms,
             "launches_migrate_cli": counts_m["fused_window_launches"],
-            "launches_migrate_bench": counts["fused_window_launches"]}
+            "launches_migrate_bench": counts["fused_window_launches"],
+            "line": line}
 
 
-def soak_phase(dev) -> None:
+def soak_phase(dev) -> dict:
     """Phase [soak]: three closed-loop soaks on the card at the rig widths
     (``SOAK_WIDTHS``), queries over ``/v1/*``, ``SOAK_SECONDS`` virtual
     seconds, not realtime: A on one queue and one serve shard, B on
@@ -2889,9 +2926,10 @@ def soak_phase(dev) -> None:
         f"A's byte for byte: {same_c}")
     if not same_c:
         raise AssertionError("[soak]: C's block (serve_http) differs from A's")
+    return arts["A"]
 
 
-def fabric_phase(tmp: str) -> None:
+def fabric_phase(tmp: str) -> dict:
     """Phase [fabric], parts 2 and 3. The fabric soak: ``cli soak --hosts 1
     --fabric-shards 4`` and ``--hosts 2`` in subprocesses at the rig soak's
     rate and batch over ``FABRIC_PLAYERS`` players, one virtual second, the
@@ -2938,6 +2976,7 @@ def fabric_phase(tmp: str) -> None:
         f"{time.perf_counter() - t_phase:.1f} s")
     if not same or arts[2]["fleet"]["n_hosts"] != 2:
         raise AssertionError("[fabric]: the soak's block depends on the host count")
+    return arts[2]
 
 
 def _fabric_soak(tmp: str, hosts: int) -> dict:
@@ -3030,6 +3069,7 @@ def frontdoor_phase(cfg, pub) -> None:
     replica adopted it, and the bodies again."""
     import urllib.request
 
+    from analyzer_tpu_torch.experiments.serve_bench import read_response
     from analyzer_tpu_torch.serve import QueryEngine
     from analyzer_tpu_torch.serve.frontdoor import FollowerGroup, FrontDoor
     from analyzer_tpu_torch.serve.server import ServeServer
@@ -3109,7 +3149,7 @@ def frontdoor_phase(cfg, pub) -> None:
                         f"GET {t} HTTP/1.1\r\nHost: smoke\r\n\r\n".encode()
                         for t in window))
                     for t in window:
-                        status, body = _read_http(sock, buf)
+                        status, body = read_response(sock, buf)
                         lats[c].append(time.perf_counter() - t_send)
                         if (status, body) != want[t]:
                             bad.append(t)
@@ -3192,29 +3232,166 @@ def frontdoor_phase(cfg, pub) -> None:
         engine.close()
 
 
-def _read_http(sock, buf: bytearray) -> tuple[int, bytes]:
-    """One Content-Length-framed response off a keep-alive socket."""
-    while b"\r\n\r\n" not in buf:
-        chunk = sock.recv(65536)
-        if not chunk:
-            raise ConnectionError("peer closed mid-head")
-        buf += chunk
-    end = buf.index(b"\r\n\r\n")
-    head = bytes(buf[:end])
-    clen = 0
-    for line in head.split(b"\r\n")[1:]:
-        name, _, value = line.partition(b":")
-        if name.strip().lower() == b"content-length":
-            clen = int(value)
-    del buf[:end + 4]
-    while len(buf) < clen:
-        chunk = sock.recv(65536)
-        if not chunk:
-            raise ConnectionError("peer closed mid-body")
-        buf += chunk
-    body = bytes(buf[:clen])
-    del buf[:clen]
-    return int(head.split(None, 2)[1]), body
+def serve_bench_phase() -> dict:
+    """[frontdoor]'s experiment: ``experiments.serve_bench --frontdoor`` at
+    its defaults on the card (the naive and batched phases, the sharded
+    phase, the front door under publishes against the stdlib plane). Its
+    SERVE_BENCH line must show the batched plane at 5x naive or more, the
+    sharded responses equal to the single plane's, the native codec with
+    no fallback and no error, and no retrace (the fields read 0); returns
+    the line for [offline]."""
+    from analyzer_tpu_torch.experiments import serve_bench
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = serve_bench.main(["--frontdoor"])
+    wall = time.perf_counter() - t0
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    sh, fd = line["sharded"], line["frontdoor"]
+    log(f"[frontdoor] {json.dumps(line)}")
+    log(f"[frontdoor] experiments.serve_bench --frontdoor ({line['players']} players, "
+        f"{wall:.1f} s): batched {line['value']:,.1f} queries/s (p50 / p99 "
+        f"{line['latency_ms']['p50']} / {line['latency_ms']['p99']} ms) against naive "
+        f"{line['naive']['queries_per_sec']:,.1f} = {line['speedup_vs_naive']}x; "
+        f"sharded ({sh['shards']} shards) {sh['queries_per_sec']:,.1f} queries/s, "
+        f"min_over_single {sh['min_over_single']}, bit-identical to single "
+        f"{sh['bit_identical_to_single']}; front door {fd['queries_per_sec']:,.1f} "
+        f"queries/s, p50 / p99 under publish {fd['p50_ms_under_publish']} / "
+        f"{fd['p99_ms_under_publish']} ms, {fd['speedup_vs_http']}x the stdlib plane's "
+        f"{fd['http_baseline_queries_per_sec']:,.1f}; retraces "
+        f"{line['telemetry']['retraces_total']}; degraded {line['capture']['degraded']}")
+    if rc != 0 or not (sh["bit_identical_to_single"] and fd["native"]
+                       and fd["fallbacks"] == 0 and fd["errors"] == 0):
+        raise AssertionError(f"[frontdoor]: serve_bench rc {rc}, sharded {sh}, "
+                             f"front door {fd}")
+    if line["telemetry"]["retraces_total"] or line["speedup_vs_naive"] < 5.0:
+        raise AssertionError(f"[frontdoor]: serve_bench below JAX's bar: "
+                             f"{line['speedup_vs_naive']}x naive, retraces "
+                             f"{line['telemetry']['retraces_total']}")
+    return line
+
+
+def overhead_phase(cfg, state0, stream) -> dict:
+    """Phase [overhead]: ``experiments.sharded_overhead`` at D=1 on the first
+    ``OVERHEAD_MATCHES`` matches of [main]'s stream over the whole player
+    table (an eager ``pack_schedule``): plain (the reference runner's
+    chunk), sharded (``sharded_step_fn`` with ``build_routing``) and nopsum
+    (priors by a direct gather), each the minimum of ``OVERHEAD_REPEATS``
+    runs after a warm-up. The three tables must equal the reference
+    runner's bit for bit, and one run of each sharded arm must launch
+    ``row_scatter`` once a superstep. Prints the split and each arm's ms a
+    superstep; returns the launches for the kernels line."""
+    from analyzer_tpu_torch.experiments import sharded_overhead as so
+    from analyzer_tpu_torch.sched import pack_schedule, rate_history
+
+    t_phase = time.perf_counter()
+    sub = stream.slice(0, min(OVERHEAD_MATCHES, stream.n_matches))
+    sched = pack_schedule(sub, pad_row=state0.pad_row)
+    res = so.measure(state0, sched, cfg, OVERHEAD_REPEATS)
+    ref, _ = rate_history(state0, sched, cfg, kernel="reference")
+    want = ref.table.cpu().numpy()
+    del ref
+    same = {a: np.array_equal(res[a]["table"], want, equal_nan=True) for a in so.ARMS}
+    log(f"[overhead] sharded_overhead at D=1, first {sub.n_matches} matches over "
+        f"{state0.n_players} players: {sched.n_steps} steps x B={sched.batch_size}, "
+        f"routing K={res['capacity']}, min of {OVERHEAD_REPEATS} runs")
+    for line in so.report(res, torch.device("cuda")):
+        log(f"[overhead] {line}")
+    launches = {a: res[a]["launches"] for a in ("sharded", "nopsum")}
+    log(f"[overhead] tables bit-identical to rate_history(kernel='reference'): {same}; "
+        f"row_scatter launches a run {launches} for {sched.n_steps} supersteps; "
+        f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    if not all(same.values()):
+        raise AssertionError(f"[overhead]: an arm's table differs from the reference: {same}")
+    if any(n != sched.n_steps for n in launches.values()):
+        raise AssertionError(f"[overhead]: row_scatter launches {launches} for "
+                             f"{sched.n_steps} supersteps")
+    return {"launches_overhead_sharded": launches["sharded"],
+            "launches_overhead_nopsum": launches["nopsum"]}
+
+
+def db_ingest_phase(path: str, n_matches: int, dev) -> None:
+    """Phase [db-ingest]: ``experiments.db_ingest`` on [db]'s database (its
+    reference-kernel copy, after the write-back): ``SqlStore.load_stream``
+    through the native scanner and through the python scan, the table on
+    the card; the two histories must be equal."""
+    from analyzer_tpu_torch.experiments import db_ingest
+
+    dt_n, hist_n = db_ingest.time_ingest(path, native=True, device=dev)
+    dt_p, hist_p = db_ingest.time_ingest(path, native=False, device=dev)
+    same = db_ingest.same_history(hist_n, hist_p)
+    log(f"[db-ingest] load_stream of [db]'s {n_matches} matches "
+        f"({os.path.getsize(path):,} bytes): native {dt_n:.3f} s "
+        f"({n_matches / dt_n:,.0f} matches/s), python {dt_p:.3f} s "
+        f"({n_matches / dt_p:,.0f} matches/s), native {dt_p / dt_n:.2f}x; "
+        f"histories equal (stream, ids, table): {same}")
+    if not same:
+        raise AssertionError("[db-ingest]: the native and python loads differ")
+
+
+def _cli_captured(cli, *argv) -> tuple[int, str, str]:
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(list(argv))
+    return rc, out.getvalue(), err.getvalue()
+
+
+def offline_phase(cli, tmp: str, lines: dict, capture: str) -> None:
+    """Phase [offline]: this run's artifact lines (``lines``: family ->
+    line) written under ``tmp`` as the families name them; ``cli benchdiff
+    --family F`` of each against itself must exit 0 or 1 (its absolute
+    gates may fail, and are printed as they stand), never 2, with every
+    delta at +0.0%; a copy of the BENCH line with ``fused.min_over_reference``
+    moved halfway to 1.0 must exit 1 (a gated REGRESSION unless the capture
+    is degraded); ``cli tune --dir tmp --profile capture`` ([main]'s) twice:
+    exit 0, byte-identical reports, findings printed."""
+    from analyzer_tpu_torch.obs.benchdiff import FAMILIES
+
+    t_phase = time.perf_counter()
+    paths = {}
+    for fam, line in lines.items():
+        paths[fam] = os.path.join(tmp, f"{FAMILIES[fam]}_r01.json")
+        with open(paths[fam], "w", encoding="utf-8") as f:
+            json.dump(line, f)
+    for fam in ("bench", "tiered", "ingest", "migrate", "soak", "fabric", "serve"):
+        path = paths["bench" if fam == "tiered" else fam]
+        rc, out, err = _cli_captured(cli, "benchdiff", "--family", fam, path, path)
+        rows = [ln for ln in out.splitlines() if ln.startswith("  ") and " -> " in ln]
+        absolute = [ln for ln in out.splitlines() if "VIOLATION" in ln]
+        log(f"[offline] benchdiff --family {fam} of this run's "
+            f"{os.path.basename(path)} against itself: exit {rc}; "
+            f"{len(rows)} rows; absolute gates: {absolute or 'none violated'}"
+            + (f"; {err.strip()}" if err.strip() else ""))
+        if rc not in (0, 1) or any("(+0.0%)" not in r for r in rows):
+            raise AssertionError(f"[offline] benchdiff --family {fam}: exit {rc}\n{out}{err}")
+    bench = lines["bench"]
+    doctored = json.loads(json.dumps(bench))
+    ratio = bench["fused"]["min_over_reference"]
+    doctored["fused"]["min_over_reference"] = (ratio + 1.0) / 2
+    d_path = os.path.join(tmp, f"{FAMILIES['bench']}_r02.json")
+    with open(d_path, "w", encoding="utf-8") as f:
+        json.dump(doctored, f)
+    rc, out, _err = _cli_captured(cli, "benchdiff", paths["bench"], d_path)
+    row = next(ln for ln in out.splitlines() if "fused.min_over_reference" in ln)
+    degraded = bool(bench["capture"].get("degraded")) or not bench["fused"].get("stable", True)
+    log(f"[offline] benchdiff of the BENCH line against a copy with "
+        f"fused.min_over_reference {ratio} -> {doctored['fused']['min_over_reference']}: "
+        f"exit {rc};{row}")
+    if rc != 1 or (not degraded and "REGRESSION" not in row):
+        raise AssertionError(f"[offline]: the doctored BENCH line did not fail the gate\n{out}")
+    os.unlink(d_path)
+    reports = [_cli_captured(cli, "tune", "--dir", tmp, "--profile", capture)
+               for _ in range(2)]
+    rc, text, err = reports[0]
+    log(f"[offline] cli tune --dir <this run's artifacts> --profile <[main]'s "
+        f"capture>: exit {rc}, two runs byte-identical: {reports[0] == reports[1]}")
+    for ln in text.splitlines():
+        log(f"[offline]   {ln}")
+    if rc != 0 or reports[0] != reports[1]:
+        raise AssertionError(f"[offline]: cli tune exit {rc}, identical "
+                             f"{reports[0] == reports[1]}: {err}")
+    log(f"[offline] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
 def cli_sub(*argv) -> subprocess.CompletedProcess:
@@ -3733,7 +3910,7 @@ def main(argv=None) -> int:
         f"(counted {launches}), {main_fused['total_us'] / 1e6:.4f} s device time, "
         f"{main_fused['total_us'] / 1e3 / main_fused['count']:.5f} ms per launch; "
         f"CUDA events x launches in [timing]")
-    shutil.rmtree(cap_main, ignore_errors=True)
+    # The capture stays until [offline]'s cli tune reads it.
 
     # The reference kernel (plain PyTorch on the card) over the first
     # twentieth of the schedule (a tenth until the [db] and [worker] phases
@@ -3820,6 +3997,8 @@ def main(argv=None) -> int:
         mesh_counts = mesh_phase(dev, cfg, state0, stream, pre, pre_sched, a_pre, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    # -- 6b. the D=1 ablation of the sharded step ----------------------------
+    overhead_counts = overhead_phase(cfg, state0, stream)
 
     # -- 7. the tiered table ---------------------------------------------------
     full = args.players >= N_PLAYERS
@@ -3889,9 +4068,10 @@ def main(argv=None) -> int:
     # -- 8. the serve plane ----------------------------------------------------
     serve_phase(cfg, pub, tier_state, n_players)
     del tier_state
-    # -- 8a. the front door, on the same plane ---------------------------------
+    # -- 8a. the front door, on the same plane, and its experiment -----------
     frontdoor_phase(cfg, pub)
     del pub
+    serve_line = serve_bench_phase()
 
     # -- 9. the command line ------------------------------------------------
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -3973,6 +4153,9 @@ def main(argv=None) -> int:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_db_")
     try:
         db_counts = db_phase(cli, tmp, dev, args.db_matches)
+        # -- 12a. native against python scans of [db]'s database ----------
+        db_ingest_phase(db_counts["db_path"], db_counts["n_matches"], dev)
+        os.unlink(db_counts["db_path"])
         worker_counts = worker_phase(cli, tmp, dev, args.worker_matches)
         # -- 13a. the live obs planes, on [worker]'s fixture ---------------
         t0 = time.perf_counter()
@@ -3992,7 +4175,7 @@ def main(argv=None) -> int:
     bench_counts = bench_phase(args.bench_matches)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
     try:
-        ingest_phase(tmp, dev, pre)
+        ingest_line = ingest_phase(tmp, dev, pre)
         # -- 15a. the migration, over [ingest]'s prefix CSV ------------------
         migrate_counts = migrate_phase(cli, tmp, dev, cfg, state0,
                                        os.path.join(tmp, "prefix.csv"), pre,
@@ -4002,14 +4185,26 @@ def main(argv=None) -> int:
     oracle_phase(dev, cfg, args.bench_matches)
 
     # -- 16a. the closed-loop soak ------------------------------------------
-    soak_phase(dev)
+    soak_line = soak_phase(dev)
 
     # -- 16b. the multi-host fabric (the mesh seam ran in [mesh]) ------------
     tmp = tempfile.mkdtemp(prefix="chip_smoke_fabric_")
     try:
-        fabric_phase(tmp)
+        fabric_line = fabric_phase(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- 16c. the offline tools over this run's artifacts ---------------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_offline_")
+    try:
+        offline_phase(cli, tmp, {
+            "bench": bench_counts["line"], "ingest": ingest_line,
+            "migrate": migrate_counts["line"], "soak": soak_line,
+            "fabric": fabric_line, "serve": serve_line,
+        }, cap_main)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(cap_main, ignore_errors=True)
 
     # -- 17. kernel times at the main path's shapes (collect off) -------------
     slope = window_timing.measure(windows)
@@ -4088,6 +4283,7 @@ def main(argv=None) -> int:
             "source": "analyzer_tpu_torch/kernels/csrc/row_scatter.cu",
             "replaces": "experiments/scatter_floor.py:90",
             **mesh_counts,
+            **overhead_counts,
             **{f"floor_{k}": v for k, v in scatter.items()},
         },
     ]}))

@@ -67,16 +67,20 @@ def test_import_leaves_jax_and_reference_out():
         "             'fabric.directory', 'fabric.publish', 'fabric.route',\n"
         "             'fabric.matchmaker', 'fabric.host', 'fabric.process',\n"
         "             'fabric.driver', 'serve.fastjson', 'serve._native_json',\n"
-        "             'serve.frontdoor'):\n"
+        "             'serve.frontdoor', 'obs.benchdiff', 'obs.advisor',\n"
+        "             'experiments.serve_bench', 'experiments.sharded_overhead',\n"
+        "             'experiments.db_ingest', 'kernels.fused_window_host'):\n"
         "    assert 'analyzer_tpu_torch.' + name in sys.modules, name\n"
         # importing builds nothing, starts no thread and parses no argv
         "import threading\n"
-        "from analyzer_tpu_torch.kernels import fused_window, row_scatter\n"
+        "from analyzer_tpu_torch.kernels import fused_window, fused_window_host\n"
+        "from analyzer_tpu_torch.kernels import row_scatter\n"
         "from analyzer_tpu_torch.sched import _native\n"
         "from analyzer_tpu_torch.service import _native_sql\n"
         "from analyzer_tpu_torch.io import _native_csv\n"
         "from analyzer_tpu_torch.serve import _native_json, fastjson\n"
         "assert fused_window._lib is None and row_scatter._lib is None\n"
+        "assert fused_window_host._host_lib is None\n"
         "assert _native._lib is None and _native_sql._lib is None\n"
         "assert _native_csv._lib is None and _native_json._lib is None\n"
         "assert not fastjson._native_state\n"

@@ -35,6 +35,7 @@ from analyzer_tpu_torch.core.fused import _window_plain, fused_apply_window
 from analyzer_tpu_torch.core.state import PlayerState
 from analyzer_tpu_torch.io.synthetic import synthetic_players, synthetic_stream
 from analyzer_tpu_torch.kernels import fused_window as fw
+from analyzer_tpu_torch.kernels import fused_window_host as fwh
 from analyzer_tpu_torch.sched import (
     FeedStageError,
     pack_schedule,
@@ -277,7 +278,7 @@ class TestKernelWrapperOnCpu:
     def test_host_build_of_kernel_phases_matches_plain(self, seed):
         ws, sidx, winner, mode_id, afk = self._window(seed)
         want_ws, want_ys = _window_plain(ws.clone(), sidx, winner, mode_id, afk, CFG, True)
-        got_ws, got_ys = fw.fused_window_host(
+        got_ws, got_ys = fwh.fused_window_host(
             ws.clone().numpy(), sidx.numpy(), winner.numpy(), mode_id.numpy(),
             afk.numpy(), CFG, True,
         )
@@ -304,7 +305,7 @@ class TestKernelWrapperOnCpu:
         afk[n_steps:] = 0
         want_ws, want_ys = _window_plain(ws.clone(), sidx, winner, mode_id, afk, CFG, True)
         for collect in (False, True):
-            got_ws, got_ys = fw.fused_window_host(
+            got_ws, got_ys = fwh.fused_window_host(
                 ws.clone().numpy(), sidx.numpy(), winner.numpy(), mode_id.numpy(),
                 afk.numpy(), CFG, collect, n_steps=n_steps,
             )
@@ -323,7 +324,7 @@ class TestKernelWrapperOnCpu:
             with pytest.raises(ValueError, match="n_steps"):
                 fw.fused_window(*args, n_steps=bad)
             with pytest.raises(ValueError, match="n_steps"):
-                fw.fused_window_host(ws.clone().numpy(), sidx.numpy(), winner.numpy(),
+                fwh.fused_window_host(ws.clone().numpy(), sidx.numpy(), winner.numpy(),
                                      mode_id.numpy(), afk.numpy(), CFG, False,
                                      n_steps=bad)
         for bad in (0, 3, 32):
