@@ -162,21 +162,25 @@ class _BackfillFeed(_StreamFeed):
 
     @thread_role("consumer")
     def produce(self, put) -> None:
-        while True:
-            done = self._assigner_done  # read BEFORE consuming progress
-            self._scatter_new(int(self.progress[0]))
-            advanced = False
-            while self.watermark - self.emitted >= self.spc:
-                if not self._emit_to(put, self.emitted + self.spc):
-                    return
-                advanced = True
-            if done:
-                break
-            if not advanced:
-                with self._cv:
-                    if (not self._assigner_done
-                            and self.done_m == int(self.progress[0])):
-                        self._cv.wait(self.poll_interval)
+        try:
+            while True:
+                done = self._assigner_done  # read BEFORE consuming progress
+                self._scatter_new(int(self.progress[0]))
+                advanced = False
+                while self.watermark - self.emitted >= self.spc:
+                    if not self._emit_to(put, self.emitted + self.spc):
+                        return
+                    advanced = True
+                if done:
+                    break
+                if not advanced:
+                    with self._cv:
+                        if (not self._assigner_done
+                                and self.done_m == int(self.progress[0])):
+                            self._begin_wait()
+                            self._cv.wait(self.poll_interval)
+        finally:
+            self._end_wait()
         self.front.join()
         if self._assigner_err is not None:
             raise RuntimeError(

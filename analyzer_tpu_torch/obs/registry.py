@@ -420,6 +420,14 @@ SPAN_CATALOG = (
     # to the device (the consumer thread in the port)
     "feed.materialize",
     "feed.transfer",
+    # the port's own split of the staging (nested in feed.materialize) and
+    # its three waits: the ring's two and the stream feed's on the assigner
+    "feed.gather",
+    "feed.plan",
+    "feed.pack",
+    "feed.starved",
+    "feed.backpressure",
+    "feed.wait_assign",
     # the tiered table's promotion/demotion traffic
     "tier.promote",
     "tier.demote",

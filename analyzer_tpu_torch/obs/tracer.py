@@ -83,10 +83,12 @@ class Tracer:
     @contextlib.contextmanager
     def span(self, name: str, cat: str = "app", **args):
         """Times a block as one complete trace event. ``args`` must be
-        JSON-serializable scalars (they land in the event's ``args``)."""
+        JSON-serializable scalars (they land in the event's ``args``).
+        The block receives that dict (``with span(...) as args:``) to add
+        what it learns only while it runs, such as a count of its work."""
         t0 = self._now_us()
         try:
-            yield
+            yield args
         finally:
             t1 = self._now_us()
             self._append({

@@ -37,7 +37,34 @@ Telemetry, under the JAX package's names:
     the consumer thread, outside ``batch.compute``, and the span's thread
     id says so.
 
-The counters and spans are per chunk, never per match.
+The port's own spans, all ``cat="sched"``, split that staging and time the
+waits the two counters count:
+
+  * ``feed.gather`` (``start``, ``steps``, ``fillers``), inside
+    ``feed.materialize``: the chunk's arrays — ``sched.host_window`` of a
+    packed schedule, or the stream feed's filler backfill and its
+    ``materialize_gather_window`` / ``materialize_scalar_window``;
+  * ``feed.plan`` (``start``, ``steps``, ``windows``, ``spills``), inside
+    ``feed.materialize`` on the fused path: the ratable masks and
+    :func:`~analyzer_tpu_torch.sched.residency.plan_windows`;
+  * ``feed.pack`` (``start``, ``bytes``, ``pinned``), inside
+    ``feed.materialize``: the slab — the fused path's per-window parts and
+    :meth:`Slab.finish` with its ``pin_memory()`` copy, or
+    :func:`stage_window`. On a tiered fused run ``tier.plan_fused`` runs
+    in this loop and counts as pack; a tiered reference chunk's split,
+    plans and pack (``TierManager.stage_windows``) stay one stretch of
+    ``feed.materialize``;
+  * ``feed.starved`` on the consumer and ``feed.backpressure`` on the
+    producer, around the ring's waits (``start``: the chunk waited for
+    or waiting to be put, where the item is a runner's ``(start, stop,
+    staged)``); each opens only where its counter counts;
+  * ``feed.wait_assign`` (``start``: the next window's first step) on the
+    stream feed's thread, from its first sleep on the assigner to its
+    next window (``runner._StreamFeed``): one span a stretch, not one a
+    ``poll_interval`` wake.
+
+The counters and spans are per chunk or per wait, never per match or per
+fused window.
 
 The ingest plane's staging memory lives here too: :class:`PinnedArena`
 leases page-aligned host slabs (pinned where a card is visible) that the
@@ -317,6 +344,14 @@ class FeedStageError(RuntimeError):
         self.stop = stop
 
 
+def _chunk_args(item) -> dict:
+    """``{"start": ...}`` of a runner's ``(start, stop, staged)`` item, so
+    a wait span names its chunk; nothing for another kind of item."""
+    if isinstance(item, tuple) and item and isinstance(item[0], int):
+        return {"start": item[0]}
+    return {}
+
+
 class DeviceFeed:
     """Thread-safe bounded ring of staged chunks, one producer and one
     consumer. ``put`` blocks while the ring is full, ``get`` while it is
@@ -340,8 +375,10 @@ class DeviceFeed:
         with self._cond:
             if len(self._items) >= self.depth and not self._closed:
                 self._backpressure.add(1)
-                while len(self._items) >= self.depth and not self._closed:
-                    self._cond.wait()
+                with get_tracer().span("feed.backpressure", cat="sched",
+                                       **_chunk_args(item)):
+                    while len(self._items) >= self.depth and not self._closed:
+                        self._cond.wait()
             if self._closed:
                 raise FeedClosedError("feed closed by the consumer")
             self._items.append(item)
@@ -352,8 +389,11 @@ class DeviceFeed:
         with self._cond:
             if not self._items and not self._closed:
                 self._starved.add(1)
-                while not self._items and not self._closed:
-                    self._cond.wait()
+                with get_tracer().span("feed.starved", cat="sched") as args:
+                    while not self._items and not self._closed:
+                        self._cond.wait()
+                    if self._items:
+                        args.update(_chunk_args(self._items[0]))
             if self._items:
                 item = self._items.popleft()
                 self._depth_gauge.set(len(self._items))
@@ -448,6 +488,11 @@ class Slab:
         self.host = host.pin_memory() if pin else host
         return self
 
+    @property
+    def nbytes(self) -> int:
+        """The packed buffer's size (after :meth:`finish`)."""
+        return self.host.numel() * self.host.element_size()
+
     def to_device(self, device: torch.device) -> list[torch.Tensor]:
         """One copy on the caller's current stream (asynchronous from
         pinned memory), then contiguous views of the parts."""
@@ -458,6 +503,14 @@ class Slab:
         ]
 
 
+def gather_chunk(sched, start: int, stop: int):
+    """A packed schedule's ``host_window(start, stop)`` in the chunk's
+    ``feed.gather`` span (no fillers: the schedule placed them)."""
+    with get_tracer().span("feed.gather", cat="sched", start=start,
+                           steps=stop - start, fillers=0):
+        return sched.host_window(start, stop)
+
+
 def stage_chunk(sched, start: int, stop: int, pin: bool) -> Slab:
     """The reference runner's chunk of a packed schedule
     (:func:`stage_window`), in one ``feed.materialize`` span."""
@@ -465,17 +518,22 @@ def stage_chunk(sched, start: int, stop: int, pin: bool) -> Slab:
     if check is not None:
         check(start, stop)
     with get_tracer().span("feed.materialize", cat="sched", start=start):
-        pidx, _mask, winner, mode_id, afk = sched.host_window(start, stop)
-        return stage_window(pidx, winner, mode_id, afk, pin)
+        pidx, _mask, winner, mode_id, afk = gather_chunk(sched, start, stop)
+        return stage_window(pidx, winner, mode_id, afk, pin, start=start)
 
 
-def stage_window(pidx, winner, mode_id, afk, pin: bool) -> Slab:
+def stage_window(pidx, winner, mode_id, afk, pin: bool, start: int = 0) -> Slab:
     """A materialized window's ``[S', B, 2, T]`` player rows and ``[S', B]``
-    winner / mode_id / afk scalars, packed into one slab (parts 0..3)."""
-    slab = Slab()
-    for arr in (pidx, winner, mode_id, afk):
-        slab.add(arr)
-    return slab.finish(pin)
+    winner / mode_id / afk scalars, packed into one slab (parts 0..3), in
+    one ``feed.pack`` span (``start``: the chunk's first step)."""
+    with get_tracer().span("feed.pack", cat="sched", start=start,
+                           pinned=pin) as args:
+        slab = Slab()
+        for arr in (pidx, winner, mode_id, afk):
+            slab.add(arr)
+        slab.finish(pin)
+        args["bytes"] = slab.nbytes
+        return slab
 
 
 def stage_ingest_window(win, arena: PinnedArena | None = None, device=None):
@@ -539,11 +597,11 @@ def stage_chunk_fused(sched, start: int, stop: int, fuse, collect: bool,
     if check is not None:
         check(start, stop)
     with get_tracer().span("feed.materialize", cat="sched", start=start):
-        pidx, _mask, winner, mode_id, afk = sched.host_window(start, stop)
+        pidx, _mask, winner, mode_id, afk = gather_chunk(sched, start, stop)
         return stage_fused_windows(
             pidx, winner, mode_id, afk, sched.pad_row, fuse,
             match_idx=sched.match_idx[start:stop] if collect else None,
-            pin=pin, tier=tier,
+            pin=pin, tier=tier, start=start,
         )
 
 
@@ -558,7 +616,7 @@ def _pad_window_steps(arr, k: int, fill):
 
 def stage_fused_windows(
     pidx, winner, mode_id, afk, pad_row: int, fuse, match_idx=None,
-    pin: bool = False, tier=None,
+    pin: bool = False, tier=None, start: int = 0,
 ) -> FusedChunk:
     """Residency plans for a chunk, each window padded to the static window
     size with inert steps (slot 0, unsupported mode: they read and write
@@ -569,47 +627,58 @@ def stage_fused_windows(
     its ``TierPlan`` rides along, its promotions packed into the same slab
     — the runner caps the fused ``max_rows`` at the hot capacity, so every
     fused window fits by construction. Its callers run it inside their
-    chunk's ``feed.materialize`` span."""
-    ratable = (mode_id >= 0) & ~afk
-    valid = (pidx != pad_row) & ratable[:, :, None, None]
-    plans = plan_windows(pidx, valid, pad_row, fuse.window, fuse.max_rows)
-    slab = Slab()
-    windows = []
-    tier_plans = [] if tier is not None else None
-    flat_parts = [] if match_idx is not None else None
-    k = fuse.window
-    s0 = 0
-    for plan in plans:
-        s1 = s0 + plan.n_steps
-        slot_rows = plan.slot_rows
-        if tier is not None:
-            tplan, slot_rows = tier.plan_fused(
-                plan.slot_rows, plan.n_live, pidx[s0:s1], valid[s0:s1]
-            )
-            tplan.pack(slab)
-            tier_plans.append(tplan)
-        windows.append(StagedWindow(
-            slab.add(slot_rows),
-            slab.add(_pad_window_steps(plan.slot_idx, k, 0)),
-            slab.add(_pad_window_steps(winner[s0:s1], k, 0)),
-            slab.add(_pad_window_steps(
-                mode_id[s0:s1], k, constants.UNSUPPORTED_MODE_ID
-            )),
-            slab.add(_pad_window_steps(afk[s0:s1].astype(np.int32), k, 0)),
-            plan.n_steps,
-        ))
-        if flat_parts is not None:
-            flat_parts.append(_pad_window_steps(match_idx[s0:s1], k, -1))
-        s0 = s1
+    chunk's ``feed.materialize`` span; the plans take one ``feed.plan``
+    span and the slab one ``feed.pack`` span (``start``: the chunk's first
+    step)."""
+    tracer = get_tracer()
+    with tracer.span("feed.plan", cat="sched", start=start,
+                     steps=pidx.shape[0]) as args:
+        ratable = (mode_id >= 0) & ~afk
+        valid = (pidx != pad_row) & ratable[:, :, None, None]
+        plans = plan_windows(pidx, valid, pad_row, fuse.window, fuse.max_rows)
+        spills = sum(1 for p in plans if p.spilled)
+        args.update(windows=len(plans), spills=spills)
+    with tracer.span("feed.pack", cat="sched", start=start,
+                     pinned=pin) as args:
+        slab = Slab()
+        windows = []
+        tier_plans = [] if tier is not None else None
+        flat_parts = [] if match_idx is not None else None
+        k = fuse.window
+        s0 = 0
+        for plan in plans:
+            s1 = s0 + plan.n_steps
+            slot_rows = plan.slot_rows
+            if tier is not None:
+                tplan, slot_rows = tier.plan_fused(
+                    plan.slot_rows, plan.n_live, pidx[s0:s1], valid[s0:s1]
+                )
+                tplan.pack(slab)
+                tier_plans.append(tplan)
+            windows.append(StagedWindow(
+                slab.add(slot_rows),
+                slab.add(_pad_window_steps(plan.slot_idx, k, 0)),
+                slab.add(_pad_window_steps(winner[s0:s1], k, 0)),
+                slab.add(_pad_window_steps(
+                    mode_id[s0:s1], k, constants.UNSUPPORTED_MODE_ID
+                )),
+                slab.add(_pad_window_steps(afk[s0:s1].astype(np.int32), k, 0)),
+                plan.n_steps,
+            ))
+            if flat_parts is not None:
+                flat_parts.append(_pad_window_steps(match_idx[s0:s1], k, -1))
+            s0 = s1
+        slab.finish(pin)
+        args["bytes"] = slab.nbytes
     stats = {
         "windows": len(plans),
-        "spills": sum(1 for p in plans if p.spilled),
+        "spills": spills,
         "writebacks_avoided": sum(p.writebacks_avoided for p in plans),
         "pad_steps": sum(k - p.n_steps for p in plans),
         "working_set_rows": max((p.n_live for p in plans), default=0),
     }
     return FusedChunk(
-        slab.finish(pin),
+        slab,
         windows,
         np.concatenate(flat_parts) if flat_parts else None,
         stats,

@@ -122,7 +122,9 @@ def plan_windows(
     slots. ``valid`` (``slot_mask & ratable``) feeds only the
     writebacks-avoided count: residency covers EVERY touched row, since
     non-ratable matches still gather. Each cut lands exactly on the last
-    step that fits (prefix sizes come from first-touch steps)."""
+    step that fits (prefix sizes come from first-touch steps). The feed
+    plans a chunk in one call, inside its ``feed.plan`` span
+    (``sched/feed.stage_fused_windows``)."""
     if max_rows != _pow2(max_rows):
         raise ValueError(f"max_rows must be a power of two, got {max_rows}")
     s_total = player_idx.shape[0]

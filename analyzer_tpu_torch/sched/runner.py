@@ -31,9 +31,14 @@ its outputs' copy back: enqueue cost on the card) and, with ``collect``,
 ``batch.fetch`` around the wait for the previous chunk's outputs — where
 device time surfaces on the host; with a ``view_publisher``, the throttled
 publish at each chunk boundary runs in a ``view.publish`` span (as the
-mesh's does). Each run sets the ``sched.occupancy``
-gauge and adds its supersteps to ``sched.steps_total``; device memory is
-sampled (throttled) at chunk boundaries.
+mesh's does). The port's own spans split the staging inside
+``feed.materialize`` (``feed.gather``, ``feed.plan``, ``feed.pack``) and
+time the waits: ``feed.starved`` / ``feed.backpressure`` on the ring
+(sched/feed.py) and, in :func:`rate_stream`, ``feed.wait_assign`` while
+the feed thread sleeps on the assigner. Each run sets the
+``sched.occupancy`` gauge and adds its supersteps to
+``sched.steps_total``; device memory is sampled (throttled) at chunk
+boundaries.
 """
 
 from __future__ import annotations
@@ -601,6 +606,7 @@ class _StreamFeed:
         self._cv = threading.Condition()
         self._assigner_done = False
         self._assigner_err: BaseException | None = None
+        self._wait_span = None  # the open feed.wait_assign, if any
 
     def _notify(self) -> None:
         with self._cv:
@@ -661,35 +667,56 @@ class _StreamFeed:
     def _stage(self, e0: int, e1: int):
         """Backfills fillers into the free slots of steps [e0, e1) in stream
         order, materializes the window and stages it for the consumer, in
-        one ``feed.materialize`` span."""
+        one ``feed.materialize`` span (the backfill and materialization in
+        its ``feed.gather``)."""
         b = self.b
-        win = self.slot_map[e0 * b: e1 * b]  # a view: the backfill lands in the map
-        take = min(int((win < 0).sum()), self.fillers.size - self.n_fill)
-        if take > 0:
-            free = np.flatnonzero(win < 0)[:take]
-            win[free] = self.fillers[self.n_fill: self.n_fill + take]
-            self.n_fill += take
-        mi = win.reshape(e1 - e0, b)
         tracer = get_tracer()
         with tracer.span("feed.materialize", cat="sched", start=e0):
-            pidx, mask = materialize_gather_window(
-                self.stream, mi, self.pad_row, self.team
-            )
-            winner, mode_id, afk = materialize_scalar_window(self.stream, mi)
+            with tracer.span("feed.gather", cat="sched", start=e0,
+                             steps=e1 - e0) as args:
+                # a view: the backfill lands in the map
+                win = self.slot_map[e0 * b: e1 * b]
+                take = min(int((win < 0).sum()), self.fillers.size - self.n_fill)
+                if take > 0:
+                    free = np.flatnonzero(win < 0)[:take]
+                    win[free] = self.fillers[self.n_fill: self.n_fill + take]
+                    self.n_fill += take
+                args["fillers"] = take
+                mi = win.reshape(e1 - e0, b)
+                pidx, mask = materialize_gather_window(
+                    self.stream, mi, self.pad_row, self.team
+                )
+                winner, mode_id, afk = materialize_scalar_window(self.stream, mi)
             if self.run is None and self.fuse is not None:
                 return stage_fused_windows(
                     pidx, winner, mode_id, afk, self.pad_row, self.fuse,
                     match_idx=mi if self.collect else None, pin=self.pin,
-                    tier=self.tier,
+                    tier=self.tier, start=e0,
                 )
             if self.run is None and self.tier is not None:
                 return self.tier.stage_windows(pidx, winner, mode_id, afk)
             if self.run is None:
-                return stage_window(pidx, winner, mode_id, afk, self.pin)
+                return stage_window(pidx, winner, mode_id, afk, self.pin,
+                                    start=e0)
         with tracer.span("feed.transfer", cat="sched", start=e0):
             return self.run.stage(pidx, mask, winner, mode_id, afk)
 
+    def _begin_wait(self) -> None:
+        """Opens ``feed.wait_assign`` at the first sleep on the assigner of
+        a stretch; :meth:`_end_wait` closes it at the next window or the
+        assigner's end, so the span is one a stretch, not one a wake."""
+        if self._wait_span is None:
+            self._wait_span = get_tracer().span(
+                "feed.wait_assign", cat="sched", start=self.emitted)
+            self._wait_span.__enter__()
+
+    def _end_wait(self) -> None:
+        span, self._wait_span = self._wait_span, None
+        if span is not None:
+            span.__exit__(None, None, None)
+
     def _emit(self, put, e1: int) -> None:
+        self._end_wait()
         e0 = self.emitted
         try:
             item = self._stage(e0, e1)
@@ -722,8 +749,10 @@ class _StreamFeed:
                         # reads above and this wait must not be lost.
                         if (not self._assigner_done
                                 and self.done_m == int(self.progress[0])):
+                            self._begin_wait()
                             self._cv.wait(self.poll_interval)
         finally:
+            self._end_wait()
             worker.join()
         if self._assigner_err is not None:
             raise RuntimeError("schedule assignment failed") from self._assigner_err

@@ -621,6 +621,8 @@ def stage_chunk_tiered(sched, start: int, stop: int, tier: TierManager,
     check = getattr(sched, "check_compact_invariant", None)
     if check is not None:
         check(start, stop)
+    from analyzer_tpu_torch.sched.feed import gather_chunk
+
     with get_tracer().span("feed.materialize", cat="sched", start=start):
-        pidx, _mask, winner, mode_id, afk = sched.host_window(start, stop)
+        pidx, _mask, winner, mode_id, afk = gather_chunk(sched, start, stop)
         return tier.stage_windows(pidx, winner, mode_id, afk)

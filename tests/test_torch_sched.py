@@ -1,7 +1,12 @@
 """The port's host-side pipeline against the JAX package, byte for byte:
 synthetic streams, ``pack_schedule`` (eager and windowed) and its
 ``fingerprint``, the assigners and batch sizing, and residency plans; the
-native packer against the python loops."""
+native packer against the python loops. Then the port's own staging spans
+(``sched/feed.py``): one ``feed.gather`` / ``feed.plan`` / ``feed.pack``
+nested in each chunk's ``feed.materialize``, and at most one span a chunk
+for each of the feed's three waits."""
+
+import threading
 
 import numpy as np
 import pytest
@@ -204,3 +209,153 @@ def test_resolve_fuse():
         residency.resolve_fuse("bogus")
     with pytest.raises(ValueError):
         residency.resolve_fuse("fused", fuse_window=0)
+
+
+# -- the staging spans: feed.materialize split, and the feed's waits --------
+
+SPAN_CASE = dict(n_matches=500, n_players=90, seed=7, afk_rate=0.3,
+                 unsupported_rate=0.2)
+WAITS = ("feed.wait_assign", "feed.starved", "feed.backpressure")
+
+
+def _fused_run(runner, monkeypatch=None, assign_delay=0.0):
+    """A small fused re-rate on the CPU (torch backend, batches of 4;
+    windows of 8 steps and a 64-row budget, so some windows spill) under a
+    fresh tracer and registry. Returns (final table, stats, stream, the
+    complete span events, tracer)."""
+    import time
+
+    from analyzer_tpu_torch import obs
+    from analyzer_tpu_torch.config import RatingConfig
+    from analyzer_tpu_torch.core.state import PlayerState
+    from analyzer_tpu_torch.sched import rate_history, rate_stream, runner as run_mod
+
+    tp, ts, _jp, _js = _streams(SPAN_CASE)
+    state = PlayerState.create(tp.n_players, tp.rank_points_ranked,
+                               tp.rank_points_blitz, tp.skill_tier,
+                               device="cpu")
+    if assign_delay:
+        real = run_mod.assign_batches
+
+        def slow(*a, **kw):
+            time.sleep(assign_delay)
+            return real(*a, **kw)
+
+        monkeypatch.setattr(run_mod, "assign_batches", slow)
+    kw = dict(kernel="fused", fuse_window=8, fuse_max_rows=64,
+              fuse_backend="torch", steps_per_chunk=12)
+    obs.reset_registry()
+    tracer = obs.reset_tracer()
+    stats = {}
+    if runner == "stream":
+        out, _ = rate_stream(state, ts, RatingConfig(), batch_size=4,
+                             stats_out=stats, **kw)
+    else:
+        sched = superstep.pack_schedule(ts, pad_row=state.pad_row, batch_size=4)
+        out, _ = rate_history(state, sched, RatingConfig(), stats_out=stats, **kw)
+        stats["n_steps"] = sched.n_steps
+    evs = [e for e in tracer.events() if e["ph"] == "X"]
+    return out.table.numpy(), stats, ts, evs, tracer
+
+
+@pytest.mark.parametrize("runner", ["stream", "history"])
+def test_staging_spans_nest_in_materialize(runner):
+    table, stats, ts, evs, tracer = _fused_run(runner)
+    mats = [e for e in evs if e["name"] == "feed.materialize"]
+    assert len(mats) == len({m["args"]["start"] for m in mats}) > 2
+    subs = {n: [e for e in evs if e["name"] == n]
+            for n in ("feed.gather", "feed.plan", "feed.pack")}
+    for m in mats:
+        for name, spans in subs.items():
+            mine = [e for e in spans if e["args"]["start"] == m["args"]["start"]]
+            assert len(mine) == 1, (name, m["args"])
+            (e,) = mine
+            assert e["tid"] == m["tid"]
+            assert m["ts"] <= e["ts"] and e["ts"] + e["dur"] <= m["ts"] + m["dur"] + 0.2
+    assert all(len(s) == len(mats) for s in subs.values())
+    for key in ("windows", "spills"):
+        assert sum(e["args"][key] for e in subs["feed.plan"]) == stats[key]
+    assert stats["spills"] > 0
+    for name in ("feed.gather", "feed.plan"):
+        assert sum(e["args"]["steps"] for e in subs[name]) == stats["n_steps"]
+    assert all(e["args"]["bytes"] > 0 and e["args"]["pinned"] is False
+               for e in subs["feed.pack"])
+    fillers = sum(e["args"]["fillers"] for e in subs["feed.gather"])
+    # the stream feed places every non-ratable match; a packed schedule
+    # already holds them
+    assert fillers == (int((~ts.ratable).sum()) if runner == "stream" else 0)
+    assert tracer.dropped == 0
+
+
+def test_staging_spans_leave_the_table_unchanged():
+    from analyzer_tpu_torch.config import RatingConfig
+    from analyzer_tpu_torch.core.state import PlayerState
+    from analyzer_tpu_torch.sched import rate_history
+
+    table, _stats, ts, _evs, _tr = _fused_run("stream")
+    tp = _streams(SPAN_CASE)[0]
+    state = PlayerState.create(tp.n_players, tp.rank_points_ranked,
+                               tp.rank_points_blitz, tp.skill_tier,
+                               device="cpu")
+    sched = superstep.pack_schedule(ts, pad_row=state.pad_row, batch_size=4)
+    ref, _ = rate_history(state, sched, RatingConfig())
+    assert np.array_equal(table, ref.table.numpy(), equal_nan=True)
+
+
+def test_waits_are_one_span_per_chunk_at_most(monkeypatch):
+    """A slow assigner start: the feed waits on it in ONE
+    ``feed.wait_assign`` span (not one a 2 ms wake), at least as long as
+    the delay; every wait span names at most one of each kind a chunk."""
+    delay = 0.08
+    _table, _stats, _ts, evs, tracer = _fused_run(
+        "stream", monkeypatch, assign_delay=delay)
+    chunks = {e["args"]["start"] for e in evs if e["name"] == "feed.materialize"}
+    for name in WAITS:
+        spans = [e for e in evs if e["name"] == name]
+        starts = [e["args"].get("start") for e in spans]
+        keyed = [s for s in starts if s is not None]
+        assert len(keyed) == len(set(keyed)) and set(keyed) <= chunks, name
+        # the ring's wait for its close names no chunk: one at most
+        assert starts.count(None) <= (1 if name == "feed.starved" else 0), name
+    (first,) = [e for e in evs if e["name"] == "feed.wait_assign"
+                and e["args"]["start"] == 0]
+    assert first["dur"] >= 0.9 * delay * 1e6
+    assert tracer.dropped == 0
+
+
+@pytest.mark.parametrize("slow_side", ["consumer", "producer"])
+def test_prefetcher_wait_spans_match_their_counters(slow_side):
+    """A sleeping consumer makes the producer wait on a full ring (one
+    ``feed.backpressure`` a wait, as long as the sleep); a sleeping
+    producer makes the consumer wait on an empty one (``feed.starved``)."""
+    import time
+
+    from analyzer_tpu_torch import obs
+    from analyzer_tpu_torch.sched.feed import Prefetcher
+
+    nap = 0.05
+    reg = obs.reset_registry()
+    tracer = obs.reset_tracer()
+
+    def producer(put):
+        for start in range(3):
+            if slow_side == "producer":
+                time.sleep(nap)
+            put((start, start + 1, None))
+
+    got = []
+    with Prefetcher(producer, depth=1) as pf:
+        for item in pf:
+            got.append(item[0])
+            if slow_side == "consumer":
+                time.sleep(nap)
+    assert got == [0, 1, 2]
+    name, counter = (("feed.backpressure", "feed.backpressure_total")
+                     if slow_side == "consumer"
+                     else ("feed.starved", "feed.starved_total"))
+    spans = [e for e in tracer.events() if e["name"] == name]
+    assert len(spans) == reg.counter(counter).value >= 1
+    keyed = [e for e in spans if "start" in e["args"]]
+    assert keyed and max(e["dur"] for e in keyed) >= 0.5 * nap * 1e6
+    me = threading.get_ident() % 1_000_000
+    assert all((e["tid"] == me) == (slow_side == "producer") for e in spans)
