@@ -1,13 +1,15 @@
 """ctypes loader for the native superstep packer (``csrc/packer.cc``): the
-one-shot ASAP and first-fit loops, and the restartable windowed first-fit
+one-shot ASAP and first-fit loops, the restartable windowed first-fit
 (``assign_ff_create`` / ``feed`` / ``finish`` / ``destroy``) that the
-migration engine's front half runs (``migrate/assign.py``).
+migration engine's front half runs (``migrate/assign.py``), and the fused
+feed's one-pass residency planner (``plan_residency``, behind
+``residency.plan_windows``).
 
 Built with g++ at first use (:mod:`analyzer_tpu_torch.native_build`).
 :func:`load` returns None only when no g++ is installed — the schedulers in
-``superstep.py`` then run their python loops and count it; a g++ that
-fails to build the packer raises. Results equal the python loops exactly
-(tests/test_torch_sched.py).
+``superstep.py`` and the planner in ``residency.py`` then run their numpy
+loops and count it; a g++ that fails to build the packer raises. Results
+equal the python loops exactly (tests/test_torch_sched.py).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import ctypes
 import os
 import shutil
 import threading
+from typing import NamedTuple
 
 import numpy as np
 
@@ -30,6 +33,8 @@ _lib: ctypes.CDLL | None = None
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
+_U32P = ctypes.POINTER(ctypes.c_uint32)
+_U64P = ctypes.POINTER(ctypes.c_uint64)
 
 
 def load() -> ctypes.CDLL | None:
@@ -61,6 +66,12 @@ def load() -> ctypes.CDLL | None:
             lib.assign_ff_finish.restype = ctypes.c_int64
             lib.assign_ff_destroy.argtypes = [ctypes.c_void_p]
             lib.assign_ff_destroy.restype = None
+            lib.plan_residency.argtypes = [
+                _I32P, _U8P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+                ctypes.c_int64, ctypes.c_int64, _U64P, ctypes.c_int64, _U32P,
+                _I32P, _I32P, _I32P, _I32P, ctypes.c_int64, _I64P, _I64P,
+            ]
+            lib.plan_residency.restype = ctypes.c_int64
             _lib = lib
         return _lib
 
@@ -226,3 +237,73 @@ def assign_ff_destroy(lib: ctypes.CDLL, handle: int) -> None:
     """Frees the state; safe on a handle never finished, once per create."""
     if handle:
         lib.assign_ff_destroy(handle)
+
+
+# -- the fused feed's residency planner (residency.plan_windows) ----------
+class ResidencyPlanned(NamedTuple):
+    """One :func:`plan_residency` call's raw result: ``code`` is the window
+    count (>= 0) or the fault code (< 0, with ``fault`` its two numbers);
+    ``meta`` [windows, 4] int64 rows are (steps, n_live, spilled,
+    writebacks_avoided); ``live_rows`` / ``first_use`` / ``last_use`` hold
+    the windows' live slots back to back."""
+
+    code: int
+    fault: tuple[int, int]
+    slot_idx: np.ndarray
+    meta: np.ndarray
+    live_rows: np.ndarray
+    first_use: np.ndarray
+    last_use: np.ndarray
+
+
+def plan_residency(
+    lib: ctypes.CDLL,
+    rows: np.ndarray,
+    valid: np.ndarray,
+    pad_row: int,
+    window: int,
+    max_rows: int,
+    table: np.ndarray,
+    generation: np.ndarray,
+) -> ResidencyPlanned:
+    """Plans ``rows`` (``[S, ...]`` int32 player rows in ``[0, pad_row]``)
+    into fused windows with the GIL released. ``table`` (uint64, at least
+    ``pad_row + 1`` entries) and ``generation`` (``[1]`` uint32) are the
+    caller's row -> slot scratch, carried from call to call; one caller at
+    a time may hold them."""
+    rows = np.ascontiguousarray(rows, dtype=np.int32)
+    valid = np.ascontiguousarray(valid, dtype=bool)
+    if valid.shape != rows.shape:
+        raise ValueError(
+            f"valid must have the rows' shape {rows.shape}, got {valid.shape}"
+        )
+    n_rows = int(pad_row) + 1
+    if (table.dtype != np.uint64 or table.size < n_rows
+            or not table.flags["C_CONTIGUOUS"]):
+        raise ValueError(
+            f"table must be a C-contiguous uint64 array of size >= {n_rows}"
+        )
+    if generation.dtype != np.uint32 or generation.shape != (1,):
+        raise ValueError("generation must be a [1] uint32 array")
+    n_steps = rows.shape[0]
+    per_step = int(np.prod(rows.shape[1:]))
+    capacity = n_steps * (per_step + 1) + 1
+    slot_idx = np.empty(rows.shape, np.int32)
+    live_rows = np.empty(capacity, np.int32)
+    first_use = np.empty(capacity, np.int32)
+    last_use = np.empty(capacity, np.int32)
+    meta = np.empty((max(n_steps, 1), 4), np.int64)
+    fault = np.zeros(2, np.int64)
+    code = lib.plan_residency(
+        rows.ctypes.data_as(_I32P), valid.view(np.uint8).ctypes.data_as(_U8P),
+        n_steps, per_step, int(pad_row), int(window), int(max_rows),
+        table.ctypes.data_as(_U64P), n_rows,
+        generation.ctypes.data_as(_U32P), slot_idx.ctypes.data_as(_I32P),
+        live_rows.ctypes.data_as(_I32P), first_use.ctypes.data_as(_I32P),
+        last_use.ctypes.data_as(_I32P), capacity,
+        meta.ctypes.data_as(_I64P), fault.ctypes.data_as(_I64P),
+    )
+    return ResidencyPlanned(
+        int(code), (int(fault[0]), int(fault[1])), slot_idx,
+        meta[: max(int(code), 0)], live_rows, first_use, last_use,
+    )

@@ -11,12 +11,16 @@
 //   idx       [n_matches, slots] int32 player rows, -1 for empty slots
 //   ratable   [n_matches] uint8, 0 => no state access (result -1)
 //
-// The windowed first-fit at the end (assign_ff_*) is the migration
-// engine's front half: the same recurrence with its state carried across
-// decode windows behind a handle (migrate/assign.py).
+// The windowed first-fit (assign_ff_*) is the migration engine's front
+// half: the same recurrence with its state carried across decode windows
+// behind a handle (migrate/assign.py).
+//
+// plan_residency at the end is the fused feed's residency planner
+// (residency.plan_windows): a chunk's fused windows in one pass, no sorts.
 
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <vector>
 
 namespace {
@@ -277,6 +281,145 @@ int64_t assign_ff_finish(void* handle, int64_t* progress) {
 
 void assign_ff_destroy(void* handle) {
   delete static_cast<AssignFFState*>(handle);
+}
+
+// Residency plans for a chunk's fused windows, in one pass over its rows
+// (residency.plan_windows; the numpy planner there is the oracle, and the
+// plans are equal field for field):
+//
+//   rows      [n_steps, per_step] int32 player rows, each in [0, n_rows)
+//   valid     [n_steps, per_step] uint8 written-slot mask (the
+//             writebacks-avoided count only)
+//   table     [n_rows] uint64 row -> slot scratch, owned by the caller and
+//             reused across calls: generation << 32 | slot, where only the
+//             current window's generation counts, so no window clears it
+//   generation  in/out: the last generation used; the table's entries
+//             hold no later one (all-zero table: 0)
+//
+// Per window: slot 0 is pad_row; every other row gets the next slot at its
+// first touch. A step whose working set (padding row included) would pass
+// max_rows is cut off and opens the next window, so each window ends at
+// the last step that fits (spilled when that is short of `window` steps).
+// A second pass over the kept steps' slots, in cache, gives each slot's
+// last step and the written rows.
+//
+// Outputs: slot_idx [n_steps, per_step]; per window w, meta[4w..4w+3] =
+// (steps, n_live, spilled, writebacks_avoided), and its n_live slots'
+// rows, first and last steps at the running offset (the sum of the
+// earlier windows' n_live) of live_rows / first_use / last_use, which hold
+// `capacity` entries. Returns the window count, or on a fault -1 (a step
+// alone passes max_rows: fault = {its working set, the step}), -2 (a row
+// outside [0, n_rows): fault = {the row, its flat position}) or -3 (the
+// live buffers are too small). Entries the table holds stay valid on
+// every return: the generation is written back first.
+int64_t plan_residency(const int32_t* rows, const uint8_t* valid,
+                       int64_t n_steps, int64_t per_step, int32_t pad_row,
+                       int64_t window, int64_t max_rows, uint64_t* table,
+                       int64_t n_rows, uint32_t* generation,
+                       int32_t* slot_idx, int32_t* live_rows,
+                       int32_t* first_use, int32_t* last_use,
+                       int64_t capacity, int64_t* meta, int64_t* fault) {
+  // Prefetch distance in elements: a cold row's table entry misses the
+  // cache, and the rows ahead are read in order anyway.
+  constexpr int64_t kAhead = 32;
+  const int64_t total = n_steps * per_step;
+  const uint64_t urows = static_cast<uint64_t>(n_rows);
+  const int64_t mark_size =
+      (max_rows < total + 1 ? max_rows : total + 1) + 1;
+  std::vector<uint32_t> mark(static_cast<size_t>(mark_size), 0);
+  uint32_t gen = *generation;
+  int64_t n_win = 0, off = 0, s0 = 0;
+  int64_t code = 0;
+  while (s0 < n_steps) {
+    if (gen == UINT32_MAX) {  // tags exhausted: clear once, start over
+      std::memset(table, 0, static_cast<size_t>(n_rows) * sizeof(uint64_t));
+      gen = 0;
+    }
+    ++gen;
+    const uint64_t tag = static_cast<uint64_t>(gen) << 32;
+    if (off >= capacity) { code = -3; break; }
+    int32_t* lr = live_rows + off;
+    int32_t* fu = first_use + off;
+    int32_t* lu = last_use + off;
+    table[pad_row] = tag;
+    lr[0] = pad_row;
+    fu[0] = 0;
+    int64_t n_live = 1, kept_live = 1;
+    const int64_t s1 = s0 + window < n_steps ? s0 + window : n_steps;
+    int64_t s = s0;
+    for (; s < s1; ++s) {
+      const int64_t base = s * per_step;
+      const int32_t local = static_cast<int32_t>(s - s0);
+      // Only a window's first step runs to its end past the budget: its
+      // whole working set is the fault's number.
+      const bool first_step = s == s0;
+      bool over = false;
+      for (int64_t j = 0; j < per_step; ++j) {
+        const int64_t i = base + j;
+        if (i + kAhead < total) {
+          const uint32_t ahead = static_cast<uint32_t>(rows[i + kAhead]);
+          if (ahead < urows) __builtin_prefetch(table + ahead, 1, 1);
+        }
+        const int32_t row = rows[i];
+        if (static_cast<uint32_t>(row) >= urows) {
+          fault[0] = row;
+          fault[1] = i;
+          code = -2;
+          break;
+        }
+        if (off + n_live >= capacity) { code = -3; break; }
+        // Branch-free: whether a row is fresh is data-dependent and would
+        // mispredict, so a seen row takes the same stores (its own entry
+        // again; lr / fu at n_live, which the next fresh row overwrites).
+        const uint64_t e = table[row];
+        const bool fresh = (e & 0xFFFFFFFF00000000ull) != tag;
+        const uint32_t slot =
+            fresh ? static_cast<uint32_t>(n_live) : static_cast<uint32_t>(e);
+        table[row] = tag | slot;
+        lr[n_live] = row;
+        fu[n_live] = local;
+        n_live += fresh;
+        slot_idx[i] = static_cast<int32_t>(slot);
+        if (n_live > max_rows && !first_step) { over = true; break; }
+      }
+      if (code != 0 || over || n_live > max_rows) break;
+      kept_live = n_live;
+    }
+    if (code != 0) break;
+    if (s == s0) {  // the window's first step alone passes the budget
+      fault[0] = n_live;
+      fault[1] = s0;
+      code = -1;
+      break;
+    }
+    // Second pass over the kept steps [s0, s): last uses, written rows.
+    lu[0] = 0;
+    const uint32_t stamp = static_cast<uint32_t>(n_win + 1);
+    int64_t written = 0, unique_written = 0;
+    for (int64_t t = s0; t < s; ++t) {
+      const int32_t local = static_cast<int32_t>(t - s0);
+      const int32_t* si = slot_idx + t * per_step;
+      const uint8_t* v = valid + t * per_step;
+      for (int64_t j = 0; j < per_step; ++j) {
+        const int32_t slot = si[j];
+        lu[slot] = local;
+        const uint32_t w = v[j] != 0;
+        const uint32_t m = mark[slot];
+        written += w;
+        unique_written += w & (m != stamp);
+        mark[slot] = w ? stamp : m;
+      }
+    }
+    meta[4 * n_win + 0] = s - s0;
+    meta[4 * n_win + 1] = kept_live;
+    meta[4 * n_win + 2] = s < s1 ? 1 : 0;
+    meta[4 * n_win + 3] = written - unique_written;
+    ++n_win;
+    off += kept_live;
+    s0 = s;
+  }
+  *generation = gen;
+  return code != 0 ? code : n_win;
 }
 
 }  // extern "C"

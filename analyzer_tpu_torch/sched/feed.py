@@ -44,9 +44,11 @@ waits the two counters count:
     ``feed.materialize``: the chunk's arrays — ``sched.host_window`` of a
     packed schedule, or the stream feed's filler backfill and its
     ``materialize_gather_window`` / ``materialize_scalar_window``;
-  * ``feed.plan`` (``start``, ``steps``, ``windows``, ``spills``), inside
-    ``feed.materialize`` on the fused path: the ratable masks and
-    :func:`~analyzer_tpu_torch.sched.residency.plan_windows`;
+  * ``feed.plan`` (``start``, ``steps``, ``windows``, ``spills``,
+    ``native``), inside ``feed.materialize`` on the fused path: the
+    ratable masks and :func:`~analyzer_tpu_torch.sched.residency.
+    plan_windows`; ``native`` is False where the numpy planner stood in
+    for the one-pass native planner (no g++);
   * ``feed.pack`` (``start``, ``bytes``, ``pinned``), inside
     ``feed.materialize``: the slab — the fused path's per-window parts and
     :meth:`Slab.finish` with its ``pin_memory()`` copy, or
@@ -89,7 +91,7 @@ from analyzer_tpu_torch.core import constants
 from analyzer_tpu_torch.device import resolve_device
 from analyzer_tpu_torch.obs import get_registry, get_tracer
 from analyzer_tpu_torch.obs.tracer import bind_trace, current_trace
-from analyzer_tpu_torch.sched.residency import plan_windows
+from analyzer_tpu_torch.sched.residency import PlanScratch, plan_windows
 
 #: Default ring depth: one chunk being dispatched, one staged behind it.
 DEFAULT_DEPTH = 2
@@ -587,12 +589,13 @@ class FusedChunk:
 
 
 def stage_chunk_fused(sched, start: int, stop: int, fuse, collect: bool,
-                      pin: bool, tier=None) -> FusedChunk:
+                      pin: bool, tier=None, scratch=None) -> FusedChunk:
     """Fused sibling of :func:`stage_chunk`: materializes the chunk and
     residency-plans it into fused windows (:func:`stage_fused_windows`),
     in one ``feed.materialize`` span. ``tier`` (a
     ``sched.tier.TierManager``) remaps each window into hot-slot space and
-    attaches its promotion/demotion plan."""
+    attaches its promotion/demotion plan; ``scratch`` is the planner's
+    :class:`~analyzer_tpu_torch.sched.residency.PlanScratch`."""
     check = getattr(sched, "check_compact_invariant", None)
     if check is not None:
         check(start, stop)
@@ -601,7 +604,7 @@ def stage_chunk_fused(sched, start: int, stop: int, fuse, collect: bool,
         return stage_fused_windows(
             pidx, winner, mode_id, afk, sched.pad_row, fuse,
             match_idx=sched.match_idx[start:stop] if collect else None,
-            pin=pin, tier=tier, start=start,
+            pin=pin, tier=tier, start=start, scratch=scratch,
         )
 
 
@@ -616,7 +619,7 @@ def _pad_window_steps(arr, k: int, fill):
 
 def stage_fused_windows(
     pidx, winner, mode_id, afk, pad_row: int, fuse, match_idx=None,
-    pin: bool = False, tier=None, start: int = 0,
+    pin: bool = False, tier=None, start: int = 0, scratch=None,
 ) -> FusedChunk:
     """Residency plans for a chunk, each window padded to the static window
     size with inert steps (slot 0, unsupported mode: they read and write
@@ -626,18 +629,22 @@ def stage_fused_windows(
     into hot slots (the fused gather then reads through the hot set) and
     its ``TierPlan`` rides along, its promotions packed into the same slab
     — the runner caps the fused ``max_rows`` at the hot capacity, so every
-    fused window fits by construction. Its callers run it inside their
-    chunk's ``feed.materialize`` span; the plans take one ``feed.plan``
-    span and the slab one ``feed.pack`` span (``start``: the chunk's first
-    step)."""
+    fused window fits by construction. ``scratch`` (a
+    :class:`~analyzer_tpu_torch.sched.residency.PlanScratch`) is the
+    planner's row -> slot table, which a caller staging chunk after chunk
+    on one thread passes to each. Its callers run it inside their chunk's
+    ``feed.materialize`` span; the plans take one ``feed.plan`` span and
+    the slab one ``feed.pack`` span (``start``: the chunk's first step)."""
     tracer = get_tracer()
+    scratch = PlanScratch() if scratch is None else scratch
     with tracer.span("feed.plan", cat="sched", start=start,
                      steps=pidx.shape[0]) as args:
         ratable = (mode_id >= 0) & ~afk
         valid = (pidx != pad_row) & ratable[:, :, None, None]
-        plans = plan_windows(pidx, valid, pad_row, fuse.window, fuse.max_rows)
+        plans = plan_windows(pidx, valid, pad_row, fuse.window, fuse.max_rows,
+                             scratch=scratch)
         spills = sum(1 for p in plans if p.spilled)
-        args.update(windows=len(plans), spills=spills)
+        args.update(windows=len(plans), spills=spills, native=scratch.native)
     with tracer.span("feed.pack", cat="sched", start=start,
                      pinned=pin) as args:
         slab = Slab()

@@ -17,6 +17,17 @@ with the slab.
   * When a window's working set would exceed ``max_rows``, the window is
     CUT at the last step that fits and the rest becomes its own window(s)
     (a spill); the runner pads short windows with inert steps.
+
+A chunk is planned in ONE native pass (``plan_residency`` in
+``csrc/packer.cc``, through :mod:`analyzer_tpu_torch.sched._native`), with
+the GIL released and no sort: a row -> slot table tagged by window
+generation hands out slots at first touch, the first step that would pass
+the budget is dropped and opens the next window, and a second pass over
+the kept steps' slots, in cache, gives the last uses and the written rows.
+The table is the caller's :class:`PlanScratch`, reused across its chunks.
+The sort-based numpy planner (:func:`_plan_windows_py`, the JAX package's
+algorithm) is the oracle the tests hold the native pass to, and serves
+only where no g++ is installed; :data:`python_fallbacks` counts that.
 """
 
 from __future__ import annotations
@@ -25,6 +36,11 @@ import dataclasses
 import os
 
 import numpy as np
+
+from analyzer_tpu_torch.sched import _native
+
+#: Chunks planned by the numpy planner because no g++ was found.
+python_fallbacks = 0
 
 #: Supersteps per fused window.
 DEFAULT_WINDOW = 16
@@ -110,23 +126,120 @@ class ResidencyPlan:
         return self.slot_idx.shape[0]
 
 
+class PlanScratch:
+    """The native planner's row -> slot table, reused across one caller's
+    chunks: ``table[row]`` holds ``generation << 32 | slot`` and only the
+    current window's generation counts, so no window clears it. A scratch
+    plans on one thread at a time (the feed owns one a run); ``native``
+    says which planner served its last call."""
+
+    def __init__(self) -> None:
+        self.table = np.zeros(0, np.uint64)
+        self.generation = np.zeros(1, np.uint32)
+        self.native: bool | None = None
+
+    def fit(self, n_rows: int) -> None:
+        """Grows the table to ``n_rows`` entries (a fresh, all-zero one)."""
+        if self.table.size < n_rows:
+            self.table = np.zeros(n_rows, np.uint64)
+            self.generation[0] = 0
+
+
 def plan_windows(
     player_idx: np.ndarray,
     valid: np.ndarray,
     pad_row: int,
     window: int,
     max_rows: int,
+    scratch: PlanScratch | None = None,
 ) -> list[ResidencyPlan]:
     """Splits a chunk's ``[S, B, 2, T]`` gather window into fused windows
     of at most ``window`` supersteps whose working set fits ``max_rows``
     slots. ``valid`` (``slot_mask & ratable``) feeds only the
     writebacks-avoided count: residency covers EVERY touched row, since
-    non-ratable matches still gather. Each cut lands exactly on the last
-    step that fits (prefix sizes come from first-touch steps). The feed
-    plans a chunk in one call, inside its ``feed.plan`` span
-    (``sched/feed.stage_fused_windows``)."""
+    non-ratable matches still gather. A window is cut at the last step
+    whose working set, the padding row included, is at most ``max_rows``;
+    a window's first step alone over it raises ValueError, as does a row
+    outside ``[0, pad_row]``.
+
+    One native pass plans the whole chunk (module docstring), with the
+    row -> slot table of ``scratch`` (a fresh one when None); each plan's
+    ``slot_idx`` is a view into the chunk's. Without g++ the numpy planner
+    (:func:`_plan_windows_py`) returns the same plans, counted in
+    :data:`python_fallbacks`. The feed plans a chunk in one call, inside
+    its ``feed.plan`` span (``sched/feed.stage_fused_windows``)."""
+    global python_fallbacks
     if max_rows != _pow2(max_rows):
         raise ValueError(f"max_rows must be a power of two, got {max_rows}")
+    if window < 1:
+        raise ValueError(f"fuse window must be >= 1, got {window}")
+    scratch = PlanScratch() if scratch is None else scratch
+    lib = _native.load()
+    scratch.native = lib is not None
+    if lib is None:
+        python_fallbacks += 1
+        bad = (player_idx < 0) | (player_idx > pad_row)
+        if bad.any():
+            raise ValueError(_row_outside(
+                int(player_idx.ravel()[np.argmax(bad.ravel())]), pad_row))
+        return _plan_windows_py(player_idx, valid, pad_row, window, max_rows)
+    scratch.fit(pad_row + 1)
+    got = _native.plan_residency(
+        lib, player_idx, valid, pad_row, window, max_rows,
+        scratch.table, scratch.generation,
+    )
+    if got.code == -1:
+        raise ValueError(_over_budget(got.fault[0], max_rows))
+    if got.code == -2:
+        raise ValueError(_row_outside(got.fault[0], pad_row))
+    if got.code < 0:
+        raise RuntimeError(f"plan_residency failed with code {got.code}")
+    plans = []
+    off = s0 = 0
+    for n_steps, n_live, spilled, avoided in got.meta.tolist():
+        slot_rows = np.full(_pow2(max(n_live, 8)), pad_row, np.int32)
+        slot_rows[:n_live] = got.live_rows[off: off + n_live]
+        plans.append(ResidencyPlan(
+            slot_rows=slot_rows,
+            slot_idx=got.slot_idx[s0: s0 + n_steps],
+            first_use=got.first_use[off: off + n_live],
+            last_use=got.last_use[off: off + n_live],
+            n_live=n_live,
+            writebacks_avoided=avoided,
+            spilled=bool(spilled),
+        ))
+        off += n_live
+        s0 += n_steps
+    return plans
+
+
+def _over_budget(rows: int, max_rows: int) -> str:
+    return (
+        f"one superstep touches {rows} rows but the fused "
+        f"working-set budget is {max_rows}; raise fuse_max_rows "
+        "or shrink the batch size"
+    )
+
+
+def _row_outside(row: int, pad_row: int) -> str:
+    return (
+        f"window references player row {row} outside the table's rows "
+        f"[0, {pad_row}] (the padding row is {pad_row}); planning it would "
+        "read or write the wrong player's row"
+    )
+
+
+def _plan_windows_py(
+    player_idx: np.ndarray,
+    valid: np.ndarray,
+    pad_row: int,
+    window: int,
+    max_rows: int,
+) -> list[ResidencyPlan]:
+    """The sort-based numpy planner, the JAX package's algorithm: the
+    oracle of the native pass and its stand-in without g++. Each cut lands
+    exactly on the last step that fits (prefix sizes come from first-touch
+    steps)."""
     s_total = player_idx.shape[0]
     per_step = int(np.prod(player_idx.shape[1:]))
     plans: list[ResidencyPlan] = []
@@ -144,11 +257,7 @@ def plan_windows(
         cum = np.cumsum(np.bincount(first_step, minlength=s1 - s0))
         fits = int(np.searchsorted(cum, max_rows, side="right"))
         if fits == 0:
-            raise ValueError(
-                f"one superstep touches {int(cum[0])} rows but the fused "
-                f"working-set budget is {max_rows}; raise fuse_max_rows "
-                "or shrink the batch size"
-            )
+            raise ValueError(_over_budget(int(cum[0]), max_rows))
         spilled = fits < (s1 - s0)
         if spilled:
             s1 = s0 + fits

@@ -69,7 +69,7 @@ from analyzer_tpu_torch.sched.feed import (
     stage_fused_windows,
     stage_window,
 )
-from analyzer_tpu_torch.sched.residency import resolve_fuse
+from analyzer_tpu_torch.sched.residency import PlanScratch, resolve_fuse
 from analyzer_tpu_torch.sched.tier import TierManager, stage_chunk_tiered
 from analyzer_tpu_torch.sched.superstep import (
     assign_batches,
@@ -233,12 +233,14 @@ def rate_history(
     starts = list(range(start_step, n_steps, steps_per_chunk))
 
     def produce(put) -> None:
+        scratch = PlanScratch()
         for start in starts:
             stop = min(start + steps_per_chunk, n_steps)
             try:
                 if fuse is not None:
                     item = stage_chunk_fused(
-                        sched, start, stop, fuse, collect, pin, tier=tier
+                        sched, start, stop, fuse, collect, pin, tier=tier,
+                        scratch=scratch,
                     )
                 elif tier is not None:
                     item = stage_chunk_tiered(sched, start, stop, tier, collect)
@@ -607,6 +609,7 @@ class _StreamFeed:
         self._assigner_done = False
         self._assigner_err: BaseException | None = None
         self._wait_span = None  # the open feed.wait_assign, if any
+        self.plan_scratch = PlanScratch()  # the residency planner's table
 
     def _notify(self) -> None:
         with self._cv:
@@ -691,7 +694,7 @@ class _StreamFeed:
                 return stage_fused_windows(
                     pidx, winner, mode_id, afk, self.pad_row, self.fuse,
                     match_idx=mi if self.collect else None, pin=self.pin,
-                    tier=self.tier, start=e0,
+                    tier=self.tier, start=e0, scratch=self.plan_scratch,
                 )
             if self.run is None and self.tier is not None:
                 return self.tier.stage_windows(pidx, winner, mode_id, afk)

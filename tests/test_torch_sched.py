@@ -1,7 +1,8 @@
 """The port's host-side pipeline against the JAX package, byte for byte:
 synthetic streams, ``pack_schedule`` (eager and windowed) and its
 ``fingerprint``, the assigners and batch sizing, and residency plans; the
-native packer against the python loops. Then the port's own staging spans
+native packer and the native residency planner against the python loops.
+Then the port's own staging spans
 (``sched/feed.py``): one ``feed.gather`` / ``feed.plan`` / ``feed.pack``
 nested in each chunk's ``feed.materialize``, and at most one span a chunk
 for each of the feed's three waits."""
@@ -154,18 +155,22 @@ def test_empty_stream_and_bad_rows():
         superstep.pack_schedule(ts, pad_row=10)
 
 
-@pytest.mark.parametrize("window,max_rows", [(1, 32768), (4, 32768), (16, 32768),
-                                             (4, 128), (16, 128)])
-def test_residency_plans_equal(window, max_rows):
-    _tp, ts, _jp, _js = _streams(STREAM_CASES[1])
-    sch = superstep.pack_schedule(ts, pad_row=400, batch_size=16)
-    pidx, _m, winner, mode_id, afk = sch.host_window(0, min(40, sch.n_steps))
-    valid = (pidx != 400) & ((mode_id >= 0) & ~afk)[:, :, None, None]
-    a = residency.plan_windows(pidx, valid, 400, window, max_rows)
-    b = jres.plan_windows(pidx, valid, 400, window, max_rows)
+PLAN_CASES = [(1, 32768), (4, 32768), (16, 32768), (4, 128), (16, 128)]
+
+
+def _route(monkeypatch, route):
+    """``numpy`` forces the numpy planner, as a machine without g++ has it;
+    ``native`` asserts the one-pass native planner is there."""
+    if route == "numpy":
+        monkeypatch.setattr(_native, "load", lambda: None)
+    else:
+        assert _native.load() is not None, "the native route needs g++"
+
+
+def _assert_plans_equal(a, b, pidx, pad_row):
+    """Port plans ``a`` equal JAX's ``b`` field for field and dtype for
+    dtype, and each passes the untrusted-plan check on its steps."""
     assert len(a) == len(b)
-    if max_rows < 1024:
-        assert any(p.spilled for p in a)
     s0 = 0
     for x, y in zip(a, b):
         for f in ("slot_rows", "slot_idx", "first_use", "last_use"):
@@ -173,8 +178,161 @@ def test_residency_plans_equal(window, max_rows):
             assert getattr(x, f).dtype == getattr(y, f).dtype
         assert (x.n_live, x.writebacks_avoided, x.spilled) == (
             y.n_live, y.writebacks_avoided, y.spilled)
-        residency.check_plan(x, pidx[s0:], 400)
+        assert type(x.n_live) is int and type(x.writebacks_avoided) is int
+        residency.check_plan(x, pidx[s0:], pad_row)
         s0 += x.n_steps
+    assert s0 == pidx.shape[0]
+
+
+def _check_residency_plans_equal(window, max_rows):
+    _tp, ts, _jp, _js = _streams(STREAM_CASES[1])
+    sch = superstep.pack_schedule(ts, pad_row=400, batch_size=16)
+    pidx, _m, winner, mode_id, afk = sch.host_window(0, min(40, sch.n_steps))
+    valid = (pidx != 400) & ((mode_id >= 0) & ~afk)[:, :, None, None]
+    a = residency.plan_windows(pidx, valid, 400, window, max_rows)
+    b = jres.plan_windows(pidx, valid, 400, window, max_rows)
+    if max_rows < 1024:
+        assert any(p.spilled for p in a)
+    _assert_plans_equal(a, b, pidx, 400)
+
+
+@pytest.mark.parametrize("window,max_rows", PLAN_CASES)
+def test_residency_plans_equal(window, max_rows):
+    _check_residency_plans_equal(window, max_rows)
+
+
+@pytest.mark.parametrize("window,max_rows", PLAN_CASES)
+def test_residency_plans_equal_numpy_route(monkeypatch, window, max_rows):
+    _route(monkeypatch, "numpy")
+    _check_residency_plans_equal(window, max_rows)
+
+
+def _random_chunk(seed):
+    """A seeded chunk with rows repeated within and across steps, pad-only
+    steps and random written-slot masks (not conflict-free: the planner
+    does not need it)."""
+    rng = np.random.default_rng(seed)
+    s, b, t = (int(rng.integers(1, 30)), int(rng.integers(1, 6)),
+               int(rng.integers(1, 4)))
+    pad = int(rng.integers(1, 120))
+    pidx = rng.integers(0, pad + 1, size=(s, b, 2, t), dtype=np.int32)
+    pidx[rng.random(s) < 0.2] = pad
+    pidx[rng.random(pidx.shape) < 0.2] = pad
+    valid = (pidx != pad) & (rng.random((s, b, 1, 1)) < 0.8)
+    return pidx, valid, pad
+
+
+@pytest.mark.parametrize("route", ["native", "numpy"])
+@pytest.mark.parametrize("seed", range(6))
+def test_residency_random_plans_equal(monkeypatch, route, seed):
+    """Seeded chunks x windows 1, 3, 16 x budgets from 8 rows up, through
+    one scratch table: JAX's plans, or JAX's error word for word."""
+    _route(monkeypatch, route)
+    pidx, valid, pad = _random_chunk(seed)
+    scratch = residency.PlanScratch()
+    planned = 0
+    for window in (1, 3, 16):
+        for max_rows in (8, 16, 64, 1024):
+            try:
+                want = jres.plan_windows(pidx, valid, pad, window, max_rows)
+            except ValueError as e:
+                with pytest.raises(ValueError) as got:
+                    residency.plan_windows(pidx, valid, pad, window, max_rows,
+                                           scratch=scratch)
+                assert str(got.value) == str(e)
+                continue
+            got = residency.plan_windows(pidx, valid, pad, window, max_rows,
+                                         scratch=scratch)
+            _assert_plans_equal(got, want, pidx, pad)
+            planned += 1
+    assert planned and scratch.native is (route == "native")
+
+
+@pytest.mark.parametrize("route", ["native", "numpy"])
+def test_residency_cut_edges(monkeypatch, route):
+    """A step that lands exactly on ``max_rows`` fits (``side="right"``),
+    the next new row cuts the window; pad-only steps, an empty chunk, the
+    generation tags' wrap, and the errors with their messages."""
+    _route(monkeypatch, route)
+    pad = 50
+    pidx = np.full((6, 2, 2, 2), pad, np.int32)
+    pidx[0].flat[:7] = np.arange(7)  # 7 rows + the padding row: 8, the budget
+    pidx[1].flat[:7] = np.arange(7)[::-1]  # nothing new: still fits
+    pidx[2].flat[0] = 7  # one more row: over the budget, opens a window
+    # step 3 is pad-only
+    pidx[4].flat[:3] = (7, 8, 9)
+    pidx[5].flat[:2] = (0, 9)
+    valid = pidx != pad
+    scratch = residency.PlanScratch()
+    scratch.fit(pad + 1)
+    scratch.generation[0] = 2**32 - 2  # the tags run out in this chunk
+    got = residency.plan_windows(pidx, valid, pad, 16, 8, scratch=scratch)
+    _assert_plans_equal(got, jres.plan_windows(pidx, valid, pad, 16, 8),
+                        pidx, pad)
+    assert [(p.n_steps, p.n_live, p.spilled) for p in got] == [
+        (2, 8, True), (4, 5, False)]
+    again = residency.plan_windows(pidx, valid, pad, 1, 8, scratch=scratch)
+    _assert_plans_equal(again, jres.plan_windows(pidx, valid, pad, 1, 8),
+                        pidx, pad)
+    assert [p.n_live for p in again] == [8, 8, 2, 1, 4, 3]
+    empty = np.empty((0, 2, 2, 2), np.int32)
+    assert residency.plan_windows(empty, empty != pad, pad, 16, 8) == []
+    with pytest.raises(ValueError, match="one superstep touches 8 rows but "
+                       "the fused working-set budget is 4"):
+        residency.plan_windows(pidx, valid, pad, 16, 4)
+    with pytest.raises(ValueError, match="power of two, got 12"):
+        residency.plan_windows(pidx, valid, pad, 16, 12)
+    for row in (-1, pad + 1):
+        bad = pidx.copy()
+        bad[4, 1, 0, 1] = row
+        with pytest.raises(ValueError, match=f"player row {row} outside"):
+            residency.plan_windows(bad, valid, pad, 16, 8, scratch=scratch)
+    # a fault leaves the scratch usable
+    after = residency.plan_windows(pidx, valid, pad, 16, 8, scratch=scratch)
+    _assert_plans_equal(after, got, pidx, pad)
+
+
+def test_residency_python_fallback_is_counted(monkeypatch):
+    pidx, valid, pad = _random_chunk(3)
+    want = residency.plan_windows(pidx, valid, pad, 3, 1024)
+    before = residency.python_fallbacks
+    monkeypatch.setattr(_native, "load", lambda: None)
+    scratch = residency.PlanScratch()
+    got = residency.plan_windows(pidx, valid, pad, 3, 1024, scratch=scratch)
+    assert residency.python_fallbacks == before + 1
+    assert scratch.native is False
+    _assert_plans_equal(got, want, pidx, pad)
+
+
+def test_residency_planning_on_two_threads():
+    """The feed and a second runner plan on two threads at once, each with
+    its own scratch: every plan equals the serial one."""
+    chunks = [_random_chunk(seed) for seed in (1, 2)]
+    serial = [residency.plan_windows(p, v, pad, 3, 32) for p, v, pad in chunks]
+    errors, out = [], [[], []]
+    go = threading.Barrier(2)
+
+    def plan(k):
+        try:
+            pidx, valid, pad = chunks[k]
+            scratch = residency.PlanScratch()
+            go.wait()
+            for _ in range(200):
+                out[k].append(residency.plan_windows(pidx, valid, pad, 3, 32,
+                                                     scratch=scratch))
+        except BaseException as e:  # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=plan, args=(k,)) for k in (0, 1)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errors, errors
+    for k, (pidx, _v, pad) in enumerate(chunks):
+        assert len(out[k]) == 200
+        for plans in out[k]:
+            _assert_plans_equal(plans, serial[k], pidx, pad)
 
 
 def test_residency_plan_checks():
@@ -285,6 +443,20 @@ def test_staging_spans_nest_in_materialize(runner):
     # already holds them
     assert fillers == (int((~ts.ratable).sum()) if runner == "stream" else 0)
     assert tracer.dropped == 0
+
+
+@pytest.mark.parametrize("route", ["native", "numpy"])
+def test_plan_span_names_its_planner(monkeypatch, route):
+    """Every ``feed.plan`` span of a traced fused ``rate_stream`` says which
+    planner ran; the forced numpy planner gives the same table."""
+    _route(monkeypatch, route)
+    table, stats, _ts, evs, _tr = _fused_run("stream")
+    plans = [e for e in evs if e["name"] == "feed.plan"]
+    assert plans and stats["spills"] > 0
+    assert all(e["args"]["native"] is (route == "native") for e in plans)
+    monkeypatch.undo()
+    ref, _stats, _ts, _evs, _tr = _fused_run("stream")
+    assert np.array_equal(table, ref, equal_nan=True)
 
 
 def test_staging_spans_leave_the_table_unchanged():
