@@ -23,6 +23,13 @@ early superstep, so "state after step s" is not "state after match m"):
 
 A save writes ``<path>.tmp`` and renames it into place, so a crash
 mid-write leaves the previous snapshot intact.
+
+Telemetry: each serialize and rename runs in a ``checkpoint.write`` span
+(on the writer thread for :class:`CheckpointWriter`), and the registry
+counts snapshots taken (``checkpoint.snapshots_total``), snapshots a newer
+one replaced before they were written (``checkpoint.superseded_total``)
+and the bytes of the files renamed into place
+(``checkpoint.bytes_written_total``).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import numpy as np
 
 from analyzer_tpu_torch.config import RatingConfig
 from analyzer_tpu_torch.core.state import PlayerState
+from analyzer_tpu_torch.obs import get_registry, get_tracer
 
 _FIELDS = ("table", "rank_points_ranked", "rank_points_blitz", "skill_tier")
 _CFG_FIELDS = tuple(f.name for f in dataclasses.fields(RatingConfig))
@@ -69,9 +77,14 @@ def _write(path: str, arrays: dict, seed_cfg, cursor: int, step_cursor: int,
             [float(getattr(seed_cfg, f)) for f in _CFG_FIELDS]
         )
     tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        np.savez(f, **arrays)
-    os.replace(tmp, path)
+    with get_tracer().span("checkpoint.write", cat="io",
+                           step_cursor=int(step_cursor)) as args:
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+            nbytes = f.tell()
+        os.replace(tmp, path)
+        args["bytes"] = nbytes
+    get_registry().counter("checkpoint.bytes_written_total").add(nbytes)
 
 
 def save_checkpoint(
@@ -82,6 +95,7 @@ def save_checkpoint(
     schedule_fingerprint: str | None = None,
 ) -> None:
     """Writes state + cursors atomically (tmp file + rename)."""
+    get_registry().counter("checkpoint.snapshots_total").add(1)
     _write(path, _host_arrays(state), state.seed_cfg, cursor, step_cursor,
            schedule_fingerprint)
 
@@ -119,7 +133,11 @@ class CheckpointWriter:
             raise self._err
         job = (_host_arrays(state), state.seed_cfg, cursor, step_cursor,
                schedule_fingerprint)
+        reg = get_registry()
+        reg.counter("checkpoint.snapshots_total").add(1)
         with self._lock:
+            if self._pending is not None:
+                reg.counter("checkpoint.superseded_total").add(1)
             self._pending = job
             self._event.set()
 

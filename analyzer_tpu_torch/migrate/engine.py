@@ -39,6 +39,18 @@ a checkpoint's ``start_step`` equals the uninterrupted run bit for bit: the
 front half re-derives the schedule from the bytes and skips the windows
 below the watermark.
 
+Telemetry beyond the runners' spans (``sched/runner.py``): the front half
+times each decode window (``ingest.decode``) and each assignment window
+(``migrate.assign``); the feed's sleeps on the front half are
+``feed.wait_assign``; on the caller's thread ``migrate.prepare`` times
+the per-run set-up (its ``part``: the stream buffers sized from the
+newline count, the schedule fingerprint, the feed), ``migrate.checkpoint``
+each snapshot the consumer takes (the host copy a ``CheckpointWriter``
+queues, and the final synchronous save, ``final=True``) and
+``migrate.publish`` the final staging publish; the chunk-boundary
+staging publishes are the runners' ``view.publish``, and the cutover is
+``migrate.cutover`` (``migrate/lineage.py``).
+
 The port's copy of ``analyzer_tpu.migrate.engine``: the schedule, the
 batch size and the fingerprint equal the JAX package's exactly
 (tests/test_torch_migrate.py). Where the JAX engine copies the state with
@@ -323,11 +335,12 @@ def rate_backfill(
 
     # One allocation per column, sized from the newline count (an upper
     # bound on rows: the header and a trailing newline only overshoot).
-    n_bound = data.count(b"\n") + 1
-    pidx_buf = np.full((n_bound, 2, team), -1, np.int32)
-    winner_buf = np.zeros(n_bound, np.int32)
-    mode_buf = np.zeros(n_bound, np.int32)
-    afk_buf = np.zeros(n_bound, bool)
+    with tracer.span("migrate.prepare", cat="migrate", part="buffers"):
+        n_bound = data.count(b"\n") + 1
+        pidx_buf = np.full((n_bound, 2, team), -1, np.int32)
+        winner_buf = np.zeros(n_bound, np.int32)
+        mode_buf = np.zeros(n_bound, np.int32)
+        afk_buf = np.zeros(n_bound, bool)
     n_decoded = [0]
 
     def append(win) -> tuple[int, int]:
@@ -390,9 +403,10 @@ def rate_backfill(
     else:
         b = batch_size
     spc = steps_per_chunk or min(8192, max(256, -(-n_bound // b) // 8 or 1))
-    fingerprint = migration_fingerprint(
-        data, b, spc, plan_windows=k_plan, window_rows=window_rows
-    )
+    with tracer.span("migrate.prepare", cat="migrate", part="fingerprint"):
+        fingerprint = migration_fingerprint(
+            data, b, spc, plan_windows=k_plan, window_rows=window_rows
+        )
     if fingerprint_out is not None:
         fingerprint_out["fingerprint"] = fingerprint
     if expected_fingerprint is not None and fingerprint != expected_fingerprint:
@@ -436,14 +450,15 @@ def rate_backfill(
             feed.mark_done(err)
 
     front_thread = threading.Thread(target=front, name="migrate-front", daemon=True)
-    feed = _BackfillFeed(
-        view, b, spc, team, pad_row, fuse, collect, state.table.is_cuda,
-        poll_interval, tier, front_thread, start_step, stop_after,
-    )
-    assigner = IncrementalAssigner(
-        b, feed.out_b, feed.out_s, feed.progress, on_progress=feed._notify,
-        native=assign_native,
-    )
+    with tracer.span("migrate.prepare", cat="migrate", part="feed"):
+        feed = _BackfillFeed(
+            view, b, spc, team, pad_row, fuse, collect, state.table.is_cuda,
+            poll_interval, tier, front_thread, start_step, stop_after,
+        )
+        assigner = IncrementalAssigner(
+            b, feed.out_b, feed.out_s, feed.progress, on_progress=feed._notify,
+            native=assign_native,
+        )
     # The front half's route is an operator signal: a gauge for scrapes,
     # the progress block for /statusz, stats for the bench line.
     reg.gauge("migrate.assign_native").set(assigner.is_native)
@@ -514,12 +529,14 @@ def rate_backfill(
         prog.set_total_steps(s_total)
     if staging is not None and not stopped:
         prog.note_publishing()
-        staging.publish_state(state, ids=ids)
+        with tracer.span("migrate.publish", cat="migrate", start=s_total):
+            staging.publish_state(state, ids=ids)
     occupancy = n_final / (s_total * b) if s_total else 0.0
     if stats_out is not None:
         stats_out.update(
-            n_steps=s_total, batch_size=b, occupancy=occupancy,
-            matches=n_final, streamed=True, stopped=stopped,
+            n_steps=s_total, batch_size=b, steps_per_chunk=spc,
+            occupancy=occupancy, matches=n_final, streamed=True,
+            stopped=stopped,
             emitted_steps=feed.emitted, ttfd_s=ttfd[0],
             fingerprint=fingerprint, window_rows=window_rows,
             plan_windows=k_plan, prefix_windows=prefix_windows,
@@ -586,6 +603,7 @@ def run_migration(
     )
 
     prog = get_migration_progress()
+    tracer = get_tracer()
     start_step = 0
     expected_fp = None
     if resume:
@@ -611,10 +629,11 @@ def run_migration(
         if not (due or at_stop):
             return
         last_saved[0] = next_step
-        writer.save(
-            st, cursor=0, step_cursor=next_step,
-            schedule_fingerprint=fp_holder.get("fingerprint"),
-        )
+        with tracer.span("migrate.checkpoint", cat="migrate", step=next_step):
+            writer.save(
+                st, cursor=0, step_cursor=next_step,
+                schedule_fingerprint=fp_holder.get("fingerprint"),
+            )
 
     stats: dict = {}
     try:
@@ -635,10 +654,13 @@ def run_migration(
             writer.close()
     finished = not stats.get("stopped", False)
     if checkpoint and finished:
-        save_checkpoint(
-            checkpoint, final_state, cursor=stats.get("matches", 0),
-            step_cursor=0, schedule_fingerprint=fp_holder.get("fingerprint"),
-        )
+        with tracer.span("migrate.checkpoint", cat="migrate", step=0,
+                         final=True):
+            save_checkpoint(
+                checkpoint, final_state, cursor=stats.get("matches", 0),
+                step_cursor=0,
+                schedule_fingerprint=fp_holder.get("fingerprint"),
+            )
     view = None
     pause_ms = None
     if lineage is not None:

@@ -24,7 +24,7 @@ from __future__ import annotations
 import time
 
 from analyzer_tpu_torch.migrate.progress import get_migration_progress
-from analyzer_tpu_torch.obs import get_registry
+from analyzer_tpu_torch.obs import get_registry, get_tracer
 
 
 def _make_staging(live):
@@ -55,10 +55,11 @@ def cutover(live, staging):
     staging publisher is consumed (``cutover_from``); the pause is the wall
     time of the swap — the most a reader arriving mid-cutover could wait
     (readers never block on the writer lock: they serve the previous view
-    until the swap)."""
-    t0 = time.perf_counter()
-    view = live.cutover_from(staging)
-    pause_s = time.perf_counter() - t0
+    until the swap). The swap runs in a ``migrate.cutover`` span."""
+    with get_tracer().span("migrate.cutover", cat="migrate"):
+        t0 = time.perf_counter()
+        view = live.cutover_from(staging)
+        pause_s = time.perf_counter() - t0
     get_registry().counter("migrate.cutovers_total").add(1)
     prog = get_migration_progress()
     prog.note_cutover(pause_s * 1e3)

@@ -284,6 +284,12 @@ STANDARD_COUNTERS = (
     "ingest.arena_allocs_total",
     "ingest.arena_reuses_total",
     "ingest.h2d_commits_total",
+    # Rating-state snapshots (io/checkpoint.py): snapshots taken, those a
+    # newer one replaced on the asynchronous writer before they were
+    # written (latest wins), and the bytes of the files renamed into place.
+    "checkpoint.snapshots_total",
+    "checkpoint.superseded_total",
+    "checkpoint.bytes_written_total",
     # The rating-quality plane (obs/quality.py): matches scored against
     # their pre-update predicted win probability, the streaming
     # Brier/log-loss sums and the per-bin reliability counts
@@ -443,6 +449,16 @@ SPAN_CATALOG = (
     # arena slab, and its H2D commit off that slab
     "ingest.decode",
     "ingest.commit",
+    # the migration (migrate/engine.py, migrate/lineage.py): a run's set-up,
+    # an assignment window of the front half, a snapshot the consumer
+    # takes, the final staging publish and the cutover; and a snapshot's
+    # serialize and rename (io/checkpoint.py)
+    "migrate.prepare",
+    "migrate.assign",
+    "migrate.checkpoint",
+    "migrate.publish",
+    "migrate.cutover",
+    "checkpoint.write",
 )
 
 #: Distinct labeled series allowed per family (base metric name) before
@@ -542,6 +558,9 @@ SCHEMA_HELP = {
     "ingest.arena_allocs_total": "pinned-arena slab allocations",
     "ingest.arena_reuses_total": "pinned-arena freelist reuses",
     "ingest.h2d_commits_total": "H2D commits staged off the arena",
+    "checkpoint.snapshots_total": "rating-state snapshots taken",
+    "checkpoint.superseded_total": "snapshots replaced before they were written",
+    "checkpoint.bytes_written_total": "bytes of snapshot files renamed into place",
     "ingest.arena_bytes": "pinned staging arena resident bytes",
     "quality.matches_scored_total":
         "rated matches scored against their pre-update win probability",

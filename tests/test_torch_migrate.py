@@ -470,6 +470,115 @@ class TestResume:
                                    rtol=RTOL, atol=ATOL)
 
 
+# -- the migration's spans and the snapshot counters ------------------------------
+
+
+class TestTelemetry:
+    @pytest.mark.parametrize("kernel", ["reference", "fused"])
+    def test_spans_of_a_checkpointed_cutover(self, kernel, monkeypatch, tmp_path):
+        """A checkpointed migration into a staging lineage, cut over, opens
+        the spans of what only the migration does; its table is still
+        ``rate_stream``'s over the decoded stream and a resumed run's, bit
+        for bit."""
+        import time
+
+        import analyzer_tpu_torch.migrate.engine as engine_mod
+        from analyzer_tpu_torch.obs import reset_tracer
+
+        class SlowDecoder(ColumnarDecoder):
+            """Past the planning prefix the front half lags the feed, which
+            then waits on it."""
+
+            def windows(self):
+                for k, win in enumerate(super().windows()):
+                    if k >= 2:
+                        time.sleep(0.01)
+                    yield win
+
+        monkeypatch.setattr(engine_mod, "ColumnarDecoder", SlowDecoder)
+        data, _ = _csv_bytes(tmp_path, 1200, n_players=200, seed=71, afk_rate=0.1)
+        live = ViewPublisher(min_publish_interval_s=0.0, device="cpu")
+        live.publish_state(_state(200))
+        kw = dict(kernel=kernel, window_rows=64, plan_windows=2, batch_size=16,
+                  steps_per_chunk=4, fuse_window=4, device="cpu")
+        tracer = reset_tracer()
+        ck = str(tmp_path / "spans.npz")
+        report = run_migration(_state(200), data, CFG, lineage=LineageManager(live),
+                               checkpoint=ck, checkpoint_every=8, **kw)
+        events = [e for e in tracer.events() if e["ph"] == "X"]
+        names = [e["name"] for e in events]
+        assert report.finished and live.version == 2 and tracer.dropped == 0
+        parts = {e["args"]["part"] for e in events if e["name"] == "migrate.prepare"}
+        assert parts == {"buffers", "fingerprint", "feed"}
+        snaps = [e for e in events if e["name"] == "migrate.checkpoint"]
+        steps = report.stats["n_steps"]
+        assert report.stats["steps_per_chunk"] == 4
+        assert [e["args"]["step"] for e in snaps[:-1]] == list(range(8, steps + 1, 8))
+        assert snaps[-1]["args"] == {"step": 0, "final": True}
+        writes = [e for e in events if e["name"] == "checkpoint.write"]
+        assert 1 <= len(writes) <= len(snaps)
+        assert writes[-1]["args"] == {"step_cursor": 0,
+                                      "bytes": os.path.getsize(ck)}
+        assert names.count("migrate.publish") == 1
+        assert names.count("migrate.cutover") == 1
+        assert names.index("migrate.publish") < names.index("migrate.cutover")
+        # one throttle-free staging publish at every chunk boundary
+        assert names.count("view.publish") == -(-steps // 4)
+        assert "feed.wait_assign" in names
+        assert names.count("ingest.decode") == -(-1200 // 64) + 1  # + the end
+        # the planning prefix's two windows are assigned at once
+        assert names.count("migrate.assign") == -(-1200 // 64) - 1
+
+        stream = decode_stream_csv(data)
+        ref, _ = rate_stream(_state(200), stream, CFG, kernel=kernel,
+                             batch_size=16, steps_per_chunk=4, fuse_window=4)
+        np.testing.assert_array_equal(_table(report.state), _table(ref))
+        bounded = str(tmp_path / "bounded.npz")
+        run_migration(_state(200), data, CFG, checkpoint=bounded, stop_after=8, **kw)
+        resumed = run_migration(None, data, CFG, checkpoint=bounded, resume=True, **kw)
+        np.testing.assert_array_equal(_table(report.state), _table(resumed.state))
+
+    def test_writer_counts_snapshots_superseded_and_bytes(self, monkeypatch, tmp_path):
+        """Latest wins: a snapshot queued behind a write in progress is
+        replaced by the next one and counted as superseded."""
+        from analyzer_tpu_torch.io import checkpoint as ckmod
+
+        reg = get_registry()
+        names = ("checkpoint.snapshots_total", "checkpoint.superseded_total",
+                 "checkpoint.bytes_written_total")
+        before = {n: reg.counter(n).value for n in names}
+        entered, release = threading.Event(), threading.Event()
+        real_write = ckmod._write
+        written = []
+
+        def blocking(path, arrays, seed_cfg, cursor, step_cursor, fingerprint):
+            entered.set()
+            assert release.wait(timeout=60)
+            real_write(path, arrays, seed_cfg, cursor, step_cursor, fingerprint)
+            written.append(step_cursor)
+
+        monkeypatch.setattr(ckmod, "_write", blocking)
+        path = str(tmp_path / "w.npz")
+        writer = ckmod.CheckpointWriter(path)
+        writer.save(_state(), step_cursor=1)
+        assert entered.wait(timeout=60)  # the first write is in progress
+        writer.save(_state(), step_cursor=2)  # queued
+        writer.save(_state(), step_cursor=3)  # replaces the queued one
+        release.set()
+        writer.close()
+        size = os.path.getsize(path)
+        assert written == [1, 3]
+        got = {n: reg.counter(n).value - before[n] for n in names}
+        assert got == {"checkpoint.snapshots_total": 3,
+                       "checkpoint.superseded_total": 1,
+                       "checkpoint.bytes_written_total": 2 * size}
+        monkeypatch.undo()
+        ckmod.save_checkpoint(path, _state(), cursor=5)
+        assert reg.counter("checkpoint.snapshots_total").value - before[names[0]] == 4
+        assert (reg.counter("checkpoint.bytes_written_total").value
+                - before[names[2]] == 3 * size)
+
+
 # -- the lineage cutover ---------------------------------------------------------
 
 
